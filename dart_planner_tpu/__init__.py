@@ -1,4 +1,4 @@
-"""DART-Planner TPU: a TPU-native SE(3) MPC autonomy stack.
+"""DART-Planner: a batched, accelerator-native SE(3) MPC autonomy stack.
 
 A ground-up JAX/XLA/Pallas re-design of the capabilities of
 ``Pasqui1010/DART-Planner`` (reference mounted at /root/reference):
@@ -16,11 +16,11 @@ Design principles (see SURVEY.md section 7):
    explicit (no mutable controller/planner objects in hot paths).
 2. Static shapes everywhere: obstacle sets are padded to a max count, horizons
    are compile-time constants, convergence is tracked by masks not early exit.
-3. The scenario batch is the scaling axis: ``vmap`` on one chip,
+3. The scenario batch is the scaling axis: ``vmap`` on one device,
    ``shard_map`` over a ("hosts", "devices") mesh for fleets.
 4. The hot solve is a condensed projected-Newton QP (decision variables =
    thrust vectors only; dynamics eliminated through a linear rollout), so a
-   horizon-20 solve is a 60-variable QP that batches onto the MXU.
+   horizon-20 solve is a 60-variable QP that batches across scenarios.
 """
 
 __version__ = "0.1.0"

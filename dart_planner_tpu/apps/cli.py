@@ -16,7 +16,7 @@ import sys
 def main(argv=None) -> int:
     parser = argparse.ArgumentParser(
         prog="dart-planner-tpu",
-        description="TPU-native SE(3) MPC drone autonomy stack",
+        description="Batched SE(3) MPC drone autonomy stack",
     )
     sub = parser.add_subparsers(dest="command", required=True)
 
@@ -37,6 +37,13 @@ def main(argv=None) -> int:
     demo_p.add_argument("--duration", type=float, default=None)
 
     args = parser.parse_args(argv)
+    if args.command == "run" and args.mode == "edge":
+        # placement: the edge process runs its per-tick controller on the
+        # CPU, so on a one-GPU host the cloud planner (a second JAX
+        # process) keeps the card; JAX never opens the GPU here
+        import jax
+
+        jax.config.update("jax_platforms", "cpu")
 
     # load + validate frozen config before anything runs (reference :25-32)
     from dart_planner_tpu.config import get_frozen_config

@@ -295,7 +295,7 @@ class DemoEngine:
 
 
 PAGE = """<!DOCTYPE html>
-<html><head><title>DART-Planner TPU demo</title><style>
+<html><head><title>DART-Planner demo</title><style>
 body{font-family:monospace;background:#111;color:#ddd;margin:16px}
 canvas{background:#151526;border:1px solid #444;cursor:grab}
 button{background:#233;color:#ddd;border:1px solid #566;margin:2px;
@@ -304,7 +304,7 @@ button.active{background:#375}
 #metrics{margin-top:8px;white-space:pre;color:#9fd}
 #banner{color:#fc3}
 </style></head><body>
-<h3>DART-Planner TPU &mdash; live SE(3) MPC (drag to orbit)</h3>
+<h3>DART-Planner &mdash; live SE(3) MPC (drag to orbit)</h3>
 <div id="buttons"></div>
 <canvas id="c" width="760" height="560"></canvas>
 <div id="banner"></div>

@@ -1,6 +1,6 @@
 """ENU / NED world-frame management.
 
-TPU-native equivalent of the reference's ``coordinate_frames.py``
+Equivalent of the reference's ``coordinate_frames.py``
 (/root/reference/src/dart_planner/common/coordinate_frames.py:46-140): frozen
 transform constants plus a tiny functional manager. Gravity-vector sign
 consistency is the load-bearing behavior (the geometric controller computes

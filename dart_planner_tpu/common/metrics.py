@@ -5,7 +5,7 @@ Port of the reference ``hardware/metrics.py`` (``AirSimMetricsManager``,
 history (5000 cap) — generalized to any named metric, plus percentile
 summaries used by the latency gates (tests/test_real_time_latency.py
 thresholds). Also exposes a ``jax.profiler`` trace context for device
-profiling (SURVEY.md section 5.1 TPU equivalent).
+profiling (the device-side counterpart of SURVEY.md section 5.1).
 """
 
 from __future__ import annotations
@@ -112,7 +112,7 @@ class MetricsManager:
         """Serve ``/metrics`` (Prometheus text exposition) on a daemon
         thread; returns the ``ThreadingHTTPServer`` (call ``shutdown()``
         to stop). This is the scrape target ``deploy/prometheus.yml``
-        points at — the TPU-side analog of the reference's
+        points at — the analog of the reference's
         app-container scrape endpoints (docker-compose.yml:105-130)."""
         import http.server
 
@@ -150,7 +150,7 @@ def get_metrics() -> MetricsManager:
 
 @contextlib.contextmanager
 def device_trace(log_dir: str) -> Iterator[None]:
-    """``jax.profiler`` trace context (TPU-side tracing; the host-side
+    """``jax.profiler`` trace context (device-side tracing; the host-side
     stats above mirror the reference's homegrown counters)."""
     import jax
 

@@ -1,6 +1,6 @@
 """Typed state / trajectory / command pytrees.
 
-TPU-native re-design of the reference's ``common/types.py``
+Re-design of the reference's ``common/types.py``
 (/root/reference/src/dart_planner/common/types.py:63,102,115,127): instead of
 pint-united dataclasses plus a separate unit-stripped ``FastDroneState`` for
 hot loops, there is exactly one representation — JAX pytrees of SI-unit
@@ -8,23 +8,46 @@ arrays — which is simultaneously the "fast" type (no unit objects anywhere
 near jit) and the API type (unit discipline is enforced by convention and by
 :func:`dart_planner_tpu.common.units.ensure_si` at system boundaries).
 
-All types are `flax.struct` dataclasses: immutable, pytree-registered, and
-therefore directly usable under ``jit`` / ``vmap`` / ``lax.scan``. Every field
+All types are :func:`pytree_dataclass` classes: frozen dataclasses
+registered as pytrees (``jax.tree_util.register_dataclass``), and therefore
+directly usable under ``jit`` / ``vmap`` / ``lax.scan``. Every field
 may carry leading batch dimensions, so a ``DroneState`` can be one vehicle or
 a 100k-scenario fleet with no code change.
 """
 
 from __future__ import annotations
 
+import dataclasses
 from typing import Optional
 
+import jax
 import jax.numpy as jnp
-from flax import struct
 
 Array = jnp.ndarray
 
 
-@struct.dataclass
+def static_field(**kwargs):
+    """A dataclass field kept out of the pytree leaves (hashed into the
+    treedef, so a change retraces)."""
+    return dataclasses.field(metadata={"static": True}, **kwargs)
+
+
+def pytree_dataclass(cls):
+    """Frozen dataclass registered as a pytree, with ``replace(**kw)``.
+    Fields made with :func:`static_field` are metadata, all others
+    leaves."""
+    cls = dataclasses.dataclass(frozen=True)(cls)
+    fields = dataclasses.fields(cls)
+    jax.tree_util.register_dataclass(
+        cls,
+        data_fields=[f.name for f in fields if not f.metadata.get("static")],
+        meta_fields=[f.name for f in fields if f.metadata.get("static")],
+    )
+    cls.replace = lambda self, **kw: dataclasses.replace(self, **kw)
+    return cls
+
+
+@pytree_dataclass
 class DroneState:
     """Complete vehicle state at an instant (SI units).
 
@@ -74,7 +97,7 @@ class DroneState:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class ControlCommand:
     """Low-level controller output (reference types.py:102).
 
@@ -93,7 +116,7 @@ class ControlCommand:
         )
 
 
-@struct.dataclass
+@pytree_dataclass
 class BodyRateCommand:
     """PX4-offboard style command (reference types.py:115).
 
@@ -105,7 +128,7 @@ class BodyRateCommand:
     body_rates: Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class Trajectory:
     """Time-indexed desired-state sequence from the planner
     (reference types.py:127).
@@ -129,7 +152,7 @@ class Trajectory:
         return self.timestamps.shape[-1]
 
 
-@struct.dataclass
+@pytree_dataclass
 class Pose:
     """Position + orientation (reference types.py:10)."""
 
@@ -137,7 +160,7 @@ class Pose:
     orientation: Array  # roll, pitch, yaw (rad)
 
 
-@struct.dataclass
+@pytree_dataclass
 class Twist:
     """Linear + angular velocity (reference types.py:16)."""
 
@@ -145,7 +168,7 @@ class Twist:
     angular: Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class Accel:
     """Linear + angular acceleration (reference types.py:22)."""
 
@@ -153,7 +176,7 @@ class Accel:
     angular: Array
 
 
-@struct.dataclass
+@pytree_dataclass
 class EstimatedState:
     """Standardized state-estimator output (reference types.py:142)."""
 
@@ -161,7 +184,7 @@ class EstimatedState:
     pose: Pose
     twist: Twist
     accel: Accel
-    source: str = struct.field(pytree_node=False, default="unknown")
+    source: str = static_field(default="unknown")
 
     def to_drone_state(self) -> DroneState:
         return DroneState(

@@ -2,7 +2,7 @@
 
 The reference uses a pint ``UnitRegistry``
 (/root/reference/src/dart_planner/common/units.py:24-107) and then bypasses it
-in every hot loop via ``FastDroneState``. The TPU build keeps one rule: *all
+in every hot loop via ``FastDroneState``. This build keeps one rule: *all
 arrays are base SI*, and boundary code may annotate/validate with these
 helpers. There is deliberately no unit object that could leak into a traced
 function.

@@ -1,6 +1,6 @@
 """Edge<->cloud communication boundary.
 
-The TPU-native framework runs the whole plan->control stack in one
+This framework runs the whole plan->control stack in one
 process (SURVEY.md section 2.7), so these transports survive only as the
 *system boundary*: talking to a remote edge box, ground station, or demo
 UI. Semantics mirror the reference ``communication/`` package: ZMQ

@@ -142,8 +142,8 @@ class CommunicationConfig(BaseModel, frozen=True):
 
 
 class PlanningConfig(BaseModel, frozen=True):
-    """(defaults.yaml planning: — reference horizon 8 / dt 0.1; the TPU
-    north star raises the default horizon to 20)."""
+    """(defaults.yaml planning: — reference horizon 8 / dt 0.1; this
+    build raises the default horizon to 20)."""
 
     prediction_horizon: int = Field(20, ge=2, le=100)
     dt: float = Field(0.1, gt=0, le=1.0)

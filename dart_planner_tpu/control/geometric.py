@@ -24,10 +24,14 @@ from typing import NamedTuple
 
 import jax.numpy as jnp
 import numpy as np
-from flax import struct
 
 from dart_planner_tpu.common import frames
-from dart_planner_tpu.common.types import BodyRateCommand, ControlCommand, DroneState
+from dart_planner_tpu.common.types import (
+    BodyRateCommand,
+    ControlCommand,
+    DroneState,
+    pytree_dataclass,
+)
 from dart_planner_tpu.ops import so3
 
 Array = jnp.ndarray
@@ -71,7 +75,7 @@ class GeometricConfig(NamedTuple):
     yaw_convention: str = "lee"
 
 
-@struct.dataclass
+@pytree_dataclass
 class ControllerState:
     """Explicit controller state pytree (the reference keeps these as
     mutable attributes, geometric_controller.py:91-105)."""

@@ -23,9 +23,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
 
-from dart_planner_tpu.common.types import DroneState, Trajectory
+from dart_planner_tpu.common.types import DroneState, Trajectory, pytree_dataclass
 
 Array = jnp.ndarray
 
@@ -43,7 +42,7 @@ class SmootherConfig(NamedTuple):
     smoothing_dt: float = 0.01  # assumed command rate (TS:180)
 
 
-@struct.dataclass
+@pytree_dataclass
 class SmootherState:
     """Explicit smoother state pytree. ``horizon`` is fixed at creation."""
 

@@ -4,7 +4,7 @@ New capability beyond the reference (which only *consumes* PX4's EKF2
 output): a 9-state EKF (position, velocity, accelerometer bias) with a
 constant-acceleration process model, usable per-vehicle or vmapped over
 a fleet. All operations are fixed-shape matrix math, so a 100k-vehicle
-filter bank is one batched 9x9 pipeline on the MXU.
+filter bank is one batched 9x9 pipeline.
 
 State x = [p (3), v (3), b_a (3)]; inputs are body-frame specific force
 rotated to world by the known attitude (from the attitude loop) plus
@@ -18,7 +18,8 @@ from typing import NamedTuple
 
 import jax
 import jax.numpy as jnp
-from flax import struct
+
+from dart_planner_tpu.common.types import pytree_dataclass
 
 Array = jnp.ndarray
 
@@ -30,7 +31,7 @@ class EKFConfig(NamedTuple):
     vel_meas_noise: float = 0.1  # m/s
 
 
-@struct.dataclass
+@pytree_dataclass
 class EKFState:
     x: Array  # (..., 9)
     P: Array  # (..., 9, 9)
@@ -98,7 +99,7 @@ def ekf_predict(
             [zero3, zero3, eye3 * qb * dt],
         ]
     )
-    # fp32 matmuls: the bf16 TPU default drifts P off symmetric-PSD
+    # fp32 matmuls: a TF32 default would drift P off symmetric-PSD
     with jax.default_matmul_precision("highest"):
         P2 = F @ state.P @ F.T + Q
     return EKFState(x=x2, P=P2)

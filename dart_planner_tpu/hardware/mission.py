@@ -29,9 +29,9 @@ Differences from the reference, by design:
 - waypoints are flown in sequence with an arrival tolerance; the
   reference silently drops every intermediate waypoint
   (``self.planner.set_goal(waypoints[-1])``, PX:304).
-- the planner is the TPU fast path facade (`planning.se3_mpc`), whose
-  single-solve latency is ~0.25 ms fused — the reference's 8 ms
-  planning-warning threshold (PX:46) is kept as the watchdog bar.
+- the planner is the fast-path facade (`planning.se3_mpc`); the
+  reference's 8 ms planning-warning threshold (PX:46) is kept as the
+  watchdog bar.
 """
 
 from __future__ import annotations

@@ -1,2 +1,2 @@
 """Numerical operators: SO(3)/SE(3) math, quadrotor dynamics, MPC costs,
-and Pallas TPU kernels for the hot paths."""
+and the fused Pallas kernels (Triton route) for the hot paths."""

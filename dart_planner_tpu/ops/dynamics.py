@@ -9,7 +9,7 @@ vector (se3_mpc_planner.py:426-462):
 
 (its L-BFGS-B solver cannot actually enforce them — see SURVEY.md 3.1).
 
-The TPU-native design *eliminates* the dynamics instead: thrust vectors
+This design *eliminates* the dynamics instead: thrust vectors
 ``u (N, 3)`` are the only decision variables and positions/velocities are
 affine functions of ``u``:
 
@@ -18,7 +18,7 @@ affine functions of ``u``:
 
 where ``a = u / m + g_vec`` (``g_vec`` is the signed gravity acceleration,
 (0,0,-g) in ENU). This turns the MPC into a small dense QP whose Hessian is
-constant per configuration — ideal for batched MXU work — and makes every
+constant per configuration — ideal for batched matrix work — and makes every
 iterate exactly dynamics-feasible (a strict superset of the reference, which
 only satisfies dynamics approximately).
 
@@ -76,8 +76,8 @@ def rollout_linear(
     """Closed-form rollout: thrusts (..., N, 3) -> (positions, velocities,
     accelerations), each (..., N, 3).
 
-    One batched matmul per state sequence — no sequential dependency, so XLA
-    maps it straight onto the MXU regardless of batch size.
+    One batched matmul per state sequence — no sequential dependency, so
+    its depth does not grow with the horizon.
     """
     N = u.shape[-2]
     S_p, S_v, t = rollout_matrices(N, float(dt))

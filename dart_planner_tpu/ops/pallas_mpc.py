@@ -1,39 +1,35 @@
-"""Fused Pallas TPU kernel for the condensed SE(3) MPC solve.
+"""Fused Pallas kernel (Triton route) for the condensed SE(3) MPC solve.
 
 One ``pallas_call`` runs the *entire* projected-Newton solve — gradient,
-active-set masking, Jacobi-preconditioned CG, and the vectorized projected
-line search — with every intermediate living in VMEM. The pure-XLA path
-(:func:`dart_planner_tpu.planning.se3_mpc.solve_se3_mpc`) launches dozens
-of kernels per Newton iteration and round-trips (batch, 3N) state through
-HBM each time; at horizon N=20 the per-solve working set is ~1 KB, so that
-path is entirely launch/bandwidth bound (~2% of chip peak).
+active-set masking, Jacobi-preconditioned CG, the projected line search
+and the final exact rollout + cost — for a block of scenarios per
+program. The pure-XLA path
+(:func:`dart_planner_tpu.planning.se3_mpc.solve_se3_mpc`) runs every
+Newton round, CG step and line-search candidate as its own small kernels
+and round-trips the per-scenario state (~1 KB at N=20) through device
+memory each time; here that state never leaves the program.
 
-Data layout ("rows on sublanes, scenarios on lanes, groups stacked"):
+Layout (one program = one block of ``Bb`` scenarios on the minor axis):
 
-- a single scenario's decision/state vector occupies ``NP1`` rows
-  (``3 N`` axis-major entries — x steps 0..N-1, then y, then z — padded
-  to a multiple of 8);
-- ``G`` *independent scenarios* are stacked in the sublane dimension
-  (``NP2 = G * NP1`` rows, default G=2 → 128 rows for N=20), each lane
-  column holding G scenarios. All linear maps become ``(NP2, NP2)``
-  block-diagonal matrices, so every matmul is a full 128-row MXU tile —
-  a 64-row operand uses only a quarter of the 128x128 systolic array,
-  and group-stacking doubles effective utilization;
-- per-scenario scalars (CG step sizes, line-search costs) are per-group
-  slice reductions + broadcast-concats on the VPU (``gsum``/``gexpand``)
-  — a plain sublane reduction would sum *across* stacked scenarios, and
-  a 0/1-matrix matmul would cost a full MXU pass.
+- a scenario's thrust, position or velocity sequence is three
+  ``(NPN, Bb)`` arrays, one per world axis; rows are horizon steps, the
+  horizon padded from N up to a power of two ``NPN`` (>= 16, the smallest
+  operand Triton's dot takes). Padding rows hold exactly zero throughout:
+  every per-row constant and hinge is multiplied by the ``valid`` row mask;
+- the per-axis condensed maps (quadratic Hessian H, S_p/m, S_v/m, their
+  transposes and elementwise squares) are one ``(7, NPN, NPN)`` operand
+  shared by every program; each product is a ``jnp.dot`` at
+  ``Precision.HIGHEST`` (IEEE fp32 on the GPU, never TF32);
+- per-scenario scalars (CG step sizes, line-search costs) are ``(1, Bb)``
+  column sums;
+- obstacle spheres arrive as ``(4K, Bb)`` rows (cx, cy, cz, r); a masked
+  sphere carries r = -1e30, so its hinge is exactly zero.
 
-Measured note: with the whole solve fused, the kernel is VPU-bound, not
-MXU-bound — G=2 full-tile matmuls at half the lanes time the same as G=1
-quarter-tile matmuls, so the default is G=1; the group machinery remains
-for shapes where the balance differs (e.g. much larger horizons).
-
-Algorithm and semantics are identical to ``solve_se3_mpc`` (same cost
-model as reference se3_mpc_planner.py:516-550 with binding hinge
-penalties; same Newton/CG/line-search schedule), so the two paths agree
-to float tolerance — tests/test_pallas_mpc.py checks this on the CPU
-interpreter.
+Algorithm and semantics are those of ``solve_se3_mpc`` (same cost model,
+Newton/CG/line-search schedule, ftol stall tracking), so the paths agree
+to float tolerance on convex problems and in aggregate on obstacle
+problems (line-search near-ties may branch); ``tests/test_pallas_mpc.py``
+checks both in interpret mode on the CPU.
 """
 
 from __future__ import annotations
@@ -50,144 +46,88 @@ Array = jnp.ndarray
 
 _HI = jax.lax.Precision.HIGHEST
 
-# Line-search candidates come from SE3MPCConfig.line_search_alphas so the
-# fused kernel and the XLA path can never drift apart.
+# order of the stacked per-axis maps in the shared operand
+_MATS = ("H", "Sp", "SpT", "Sv", "SvT", "Sp2T", "Sv2T")
+_MIN_ROWS = 16  # Triton's dot wants every operand dimension >= 16
+# warps per program: of block 16/32 x 4/8/16 warps measured on the H100,
+# 16 scenarios x 8 warps ran fastest (docs/kernel.md)
+_NUM_WARPS = 8
 
-def _round_up(x: int, m: int) -> int:
-    return ((x + m - 1) // m) * m
+
+def pow2_at_least(n: int, floor: int = 1) -> int:
+    """Smallest power of two >= max(n, floor)."""
+    return max(floor, 1 << max(int(n) - 1, 0).bit_length())
 
 
-def _block_diag(blocks: list, rows: int) -> np.ndarray:
-    out = np.zeros((rows, rows), np.float32)
-    at = 0
-    for b in blocks:
-        n = b.shape[0]
-        out[at : at + n, at : at + n] = b
-        at += n
-    return out
+def block_size(batch: int, block_b: int) -> int:
+    """Scenarios per program: ``block_b`` (a power of two >= 16), cut to
+    the batch's own power of two so a small batch is not padded up to a
+    large block (the single-solve path runs one 16-lane program)."""
+    if block_b < _MIN_ROWS or block_b & (block_b - 1):
+        raise ValueError(f"block_b={block_b} must be a power of two >= 16")
+    return min(block_b, pow2_at_least(batch, _MIN_ROWS))
 
 
 @functools.lru_cache(maxsize=32)
-def _static_operands(config, G: int) -> dict:
-    """Per-config constants: group-stacked block-diagonal maps and row
-    vectors (numpy)."""
+def _axis_operands(config) -> dict:
+    """Per-config numpy constants: the stacked (7, NPN, NPN) maps and the
+    (NPN,) rollout drift rows, zero beyond the horizon."""
     N = config.prediction_horizon
-    NP1 = _round_up(3 * N, 8)
-    NP2 = G * NP1
+    NPN = pow2_at_least(N, _MIN_ROWS)
     S_p, S_v, t = dynamics.rollout_matrices(N, float(config.dt))
-    m = config.mass
-    Spm = (S_p / m).astype(np.float32)
-    Svm = (S_v / m).astype(np.float32)
-    w = config.weights
-    H = costs.quadratic_hessian(N, config.dt, m, config.gravity, w)
-
-    def bd3(mat):  # one scenario: block-diag over 3 axes, padded to NP1
-        b = _block_diag([mat.astype(np.float32)] * 3, NP1)
-        return _block_diag([b] * G, NP2)
-
-    ops = {
-        "H3": bd3(H),
-        "Spm3": bd3(Spm),
-        "Spm3T": bd3(Spm.T),
-        "Svm3": bd3(Svm),
-        "Svm3T": bd3(Svm.T),
-        "Sp2T": bd3((Spm * Spm).T),
-        "Sv2T": bd3((Svm * Svm).T),
-    }
-    # stacked pairs for the folded-matmul variant (fold_sv): one
-    # (2 NP2, NP2) / (NP2, 2 NP2) matmul replaces two (NP2, NP2) ones
-    # wherever pos- and vel-space maps share an operand (rollout, CG
-    # matvec, gradient pullback, Jacobi diagonal, line-search deltas)
-    ops["SpSv"] = np.vstack([ops["Spm3"], ops["Svm3"]])
-    ops["SpSvT"] = np.hstack([ops["Spm3T"], ops["Svm3T"]])
-    ops["Sq2T"] = np.hstack([ops["Sp2T"], ops["Sv2T"]])
-    ops["HSpSv"] = np.vstack([ops["H3"], ops["SpSv"]])  # CG-matvec stack
-    # CG-matvec stack for configs WITHOUT a velocity hinge: the Svm3
-    # third of HSpSv would be dead work there (~1/3 of the dominant
-    # matvec matmul), so those configs ship the two-block stack instead
-    ops["HSp"] = np.vstack([ops["H3"], ops["Spm3"]])
-
-    # per-scenario (NP1,) row constants, then tiled over the G groups
-    def rows1(fn):
-        v = np.zeros(NP1, np.float32)
-        for a in range(3):
-            for k in range(N):
-                v[a * N + k] = fn(a, k)
-        return v
-
-    def tiled(fn):
-        return np.tile(rows1(fn), G)[:, None]  # (NP2, 1)
-
-    hover = config.mass * config.gravity
-    mtt = config.max_thrust * float(np.sin(config.max_tilt_angle))
-    lb = np.array([-mtt, -mtt, config.min_thrust], np.float32)
-    ub = np.array([mtt, mtt, config.max_thrust], np.float32)
-    g_enu = np.array([0.0, 0.0, -config.gravity], np.float32)
-    term = float(w.terminal)
-    ops["hover"] = tiled(lambda a, k: hover if a == 2 else 0.0)
-    ops["lb"] = tiled(lambda a, k: lb[a])
-    ops["ub"] = tiled(lambda a, k: ub[a])
-    ops["g_acc"] = tiled(lambda a, k: g_enu[a])
-    ops["wp_row"] = tiled(
-        lambda a, k: w.position * (1.0 + (term if k == N - 1 else 0.0))
+    Spm = S_p / config.mass
+    Svm = S_v / config.mass
+    H = costs.quadratic_hessian(
+        N, config.dt, config.mass, config.gravity, config.weights
     )
-    ops["zrow"] = tiled(lambda a, k: 1.0 if a == 2 else 0.0)  # z-axis rows
-    ops["diag_quad"] = np.ascontiguousarray(np.diag(ops["H3"])[:, None])
+    maps = {
+        "H": H, "Sp": Spm, "SpT": Spm.T, "Sv": Svm, "SvT": Svm.T,
+        "Sp2T": (Spm * Spm).T, "Sv2T": (Svm * Svm).T,
+    }
+    mats = np.zeros((len(_MATS), NPN, NPN), np.float32)
+    for i, name in enumerate(_MATS):
+        mats[i, :N, :N] = np.asarray(maps[name], np.float32)
 
-    # per-scenario rollout drift constants, flat (NP1,)
-    ops["t_row1"] = rows1(lambda a, k: float(t[k]))
-    spg = S_p @ np.ones(N)
-    svg = S_v @ np.ones(N)
-    ops["spg1"] = rows1(lambda a, k: float(spg[k]) * g_enu[a])
-    ops["svg1"] = rows1(lambda a, k: float(svg[k]) * g_enu[a])
+    def padded(v):
+        out = np.zeros(NPN, np.float32)
+        out[:N] = v
+        return out
 
-    ops["NP1"] = NP1
-    ops["NP2"] = NP2
-    return ops
+    return {
+        "NPN": NPN,
+        "mats": mats,
+        "t": padded(t),
+        "spg": padded(S_p @ np.ones(N)),
+        "svg": padded(S_v @ np.ones(N)),
+        "valid": padded(np.ones(N)),
+    }
 
 
-def _solver_kernel(
-    config,
-    use_obstacles: bool,
-    NP1: int,
-    KP: int,
-    G: int,
-    fast_cg: bool = True,
-    K_real: int | None = None,
-    dynamic_vmax: bool = False,
-    fold_sv: bool = False,
-):
-    """Build the kernel body (all config scalars close over as constants).
+def _solver_kernel(config, NPN: int, K: int, dynamic_vmax: bool):
+    """Build the kernel body; every config scalar closes over as a
+    constant. ``K`` obstacle rows (0 = obstacle terms compiled out);
+    ``dynamic_vmax`` reads a per-scenario velocity cap row
+    (``Problem.v_cap``) in place of the static ``max_velocity``.
 
-    ``KP`` is the sublane-aligned obstacle STORAGE stride (multiple of 8);
-    ``K_real`` is how many of those rows hold live spheres. The obstacle
-    loops run ``K_real`` iterations — the padding rows carry mask 0 and
-    contribute nothing, so skipping them is exact, and at the common
-    K=4 it halves the kernel's dominant VPU work (the per-candidate
-    obstacle distance/hinge evaluation in every cost/gradient pass).
-
-    ``dynamic_vmax`` adds a per-scenario velocity-cap input row
-    (``Problem.v_cap``) replacing the static ``max_velocity`` in the
-    velocity-envelope hinge — elementwise only, no extra matmuls. It is a
-    separate kernel variant so configs without a cap stay byte-identical
-    (and compile-cache-stable) with the round-3 kernel.
-
-    ``fold_sv`` stacks matmul pairs sharing an operand into single MXU
-    calls ([H3; Spm3; Svm3] @ dv in the CG matvec, [Spm3T | Svm3T] on the
-    gradient pullback, the rollout/line-search pos+vel pair, the Jacobi
-    diagonal pair) — exact same arithmetic, ~29 instead of ~68 matmul
-    issues per Newton round (the kernel is op-issue bound). Kept as a
-    variant flag: the round-3 full fold exploded Mosaic compile time
-    19 s -> 705 s, so it ships only if this formulation compiles sanely
-    (docs/kernel.md round-3/4 tables)."""
-    if K_real is None:
-        K_real = KP
+    Code size sets Triton's compile time (minutes for a fully unrolled
+    body), so the Newton rounds, the obstacle spheres and the
+    line-search candidates are loops: the Gauss-Newton and the
+    full-curvature stages share one round body, the full-curvature
+    terms scaled by a 0/1 stage flag (exact: x + 0 * y == x for the
+    finite y here)."""
     N = config.prediction_horizon
-    NP2 = G * NP1
     w = config.weights
     inv_m = 1.0 / config.mass
-    pad_rows = NP1 - 3 * N
-
+    grav = float(config.gravity)
+    hover_z = config.mass * grav
+    mtt = config.max_thrust * float(np.sin(config.max_tilt_angle))
+    lb = (-mtt, -mtt, float(config.min_thrust))
+    ub = (mtt, mtt, float(config.max_thrust))
+    term = float(w.terminal)
+    w_p = float(w.position)
+    w_v = float(w.velocity)
+    w_a = float(w.acceleration)
+    w_t = float(w.thrust)
     w_obs = float(w.obstacle)
     w_g = float(w.ground)
     z_min = float(w.ground_altitude)
@@ -197,610 +137,381 @@ def _solver_kernel(
     tan_max = float(w.tan_max_tilt)
     w_tn = float(w.thrust_norm)
     u_max = float(w.max_thrust_norm)
+    use_obstacles = K > 0
     use_ground = w_g > 0.0
     use_vel_hinge = w_vb > 0.0
-    use_thrust_hinge = w_tilt > 0.0 or w_tn > 0.0
-    use_penalties = use_obstacles or use_ground or use_vel_hinge
-
-    def g_axes(x, g):
-        """Group g's per-axis (N, B) row blocks of an (NP2, B) array."""
-        o = g * NP1
-        return x[o : o + N], x[o + N : o + 2 * N], x[o + 2 * N : o + 3 * N]
-
-    def cat_groups(per_group):
-        """[[gx, gy, gz], ...] per group -> (NP2, B)."""
-        parts = []
-        for gx, gy, gz in per_group:
-            parts += [gx, gy, gz]
-            if pad_rows:
-                parts.append(jnp.zeros((pad_rows, gx.shape[1]), gx.dtype))
-        return jnp.concatenate(parts, axis=0)
+    use_pos_pen = use_obstacles or use_ground
+    mat_index = {name: i for i, name in enumerate(_MATS)}
+    alphas = tuple(float(a) for a in config.line_search_alphas)
+    warmup = (
+        min(config.gn_warmup_iterations, config.max_iterations)
+        if config.newton_full_curvature
+        else config.max_iterations
+    )
 
     def mm(a, b):
         return jnp.dot(a, b, precision=_HI, preferred_element_type=jnp.float32)
 
-    def mm_fast(a, b):
-        """Reduced-precision matmul (single MXU pass, bf16 inputs) for the
-        CG matvec only: the inexact-Newton direction tolerates ~1e-2
-        relative error because the projected line search guards descent
-        and the fp32 gradient/cost decide convergence."""
-        return jnp.dot(
-            a, b,
-            precision=jax.lax.Precision.DEFAULT,
-            preferred_element_type=jnp.float32,
-        )
+    def colsum(x):
+        return jnp.sum(x, axis=0, keepdims=True)
 
-    mmc = mm_fast if fast_cg else mm  # CG-matvec precision
+    def dot3(x, y):
+        return colsum(x[0] * y[0] + x[1] * y[1] + x[2] * y[2])
 
     def kernel(*refs):
-        if dynamic_vmax:
-            (
-                u_ref, cpos_ref, cvel_ref, goal_ref, obs_ref, mask_ref,
-                vmax_ref, *rest,
-            ) = refs
-        else:
-            (
-                u_ref, cpos_ref, cvel_ref, goal_ref, obs_ref, mask_ref,
-                *rest,
-            ) = refs
-            vmax_ref = None
-        if fold_sv:
-            # fold operand set varies with the velocity hinge: with it,
-            # [SpSv, SpSvT, Sq2T, HSpSv]; without, [SpSv, SpSvT, HSp]
-            # (Sq2T and the Svm3 third of the matvec stack are only used
-            # by the hinge paths — dead VMEM + dead MXU work otherwise)
-            (
-                H3_ref, Spm3_ref, Spm3T_ref, Svm3_ref, Svm3T_ref, Sp2T_ref,
-                Sv2T_ref, *fold_refs,
-                hover_ref, lb_ref, ub_ref, gacc_ref, wp_ref,
-                zrow_ref, dq_ref, out_ref, pos_ref, vel_ref, imp_ref,
-                cost_ref,
-            ) = rest
-            SpSv = fold_refs[0][:]
-            SpSvT = fold_refs[1][:]
-            Sq2T = fold_refs[2][:] if use_vel_hinge else None
-            HSpSv = fold_refs[-1][:]  # [H3; Spm3(; Svm3)] matvec stack
-        else:
-            (
-                H3_ref, Spm3_ref, Spm3T_ref, Svm3_ref, Svm3T_ref, Sp2T_ref,
-                Sv2T_ref, hover_ref, lb_ref, ub_ref, gacc_ref, wp_ref,
-                zrow_ref, dq_ref, out_ref, pos_ref, vel_ref, imp_ref,
-                cost_ref,
-            ) = rest
-        C_pos = cpos_ref[:]
-        C_vel = cvel_ref[:]
-        goal = goal_ref[:]
-        H3 = H3_ref[:]
-        Spm3 = Spm3_ref[:]
-        Spm3T = Spm3T_ref[:]
-        Svm3 = Svm3_ref[:]
-        Svm3T = Svm3T_ref[:]
-        Sp2T = Sp2T_ref[:]
-        Sv2T = Sv2T_ref[:]
-        hover = hover_ref[:]
-        lb = lb_ref[:]
-        ub = ub_ref[:]
-        g_rep = gacc_ref[:]
-        wp_row = wp_ref[:]
-        zrow = zrow_ref[:]
-        diag_quad = dq_ref[:]
-        if use_obstacles:
-            obs = obs_ref[:]
-            omask = mask_ref[:]
+        u_ref, cpos_ref, cvel_ref, goal_ref, *rest = refs
+        obs_ref = rest.pop(0) if use_obstacles else None
+        vcap_ref = rest.pop(0) if dynamic_vmax else None
+        mats_ref, u_out, pos_out, vel_out, sc_out = rest
 
-        def gsum(x):
-            """Per-scenario sublane sums: (NP2, B) -> list of G (1, B).
-            A plain sublane reduction would sum across the stacked
-            scenarios; per-group slice-sums stay on the VPU (a matmul
-            against a 0/1 matrix costs a full MXU pass regardless of its
-            tiny contraction dim — lanes set the cycle count)."""
-            return [
-                jnp.sum(x[g * NP1 : (g + 1) * NP1], axis=0, keepdims=True)
-                for g in range(G)
-            ]
+        def map3(name, v):
+            M = mats_ref[mat_index[name]]
+            return tuple(mm(M, x) for x in v)
 
-        def gexpand(ss):
-            """Per-scenario scalars back to rows: G x (1, B) -> (NP2, B)
-            via broadcast + concat (VPU only)."""
-            B = ss[0].shape[1]
-            return jnp.concatenate(
-                [jnp.broadcast_to(s, (NP1, B)) for s in ss], axis=0
-            )
+        def load3(ref):
+            return tuple(ref[a] for a in range(3))
 
-        if vmax_ref is not None:
-            # per-scenario velocity cap: one value per scenario, stored in
-            # an 8-sublane-aligned row block per group; broadcast to the
-            # NP1 state rows once (VPU, no matmuls)
-            vrow = vmax_ref[:]  # (G*8, B)
-            vmax_full = jnp.concatenate(
-                [
-                    jnp.broadcast_to(
-                        vrow[g * 8 : g * 8 + 1], (NP1, vrow.shape[1])
-                    )
-                    for g in range(G)
-                ],
-                axis=0,
-            )  # (NP2, B)
-        else:
-            vmax_full = v_max  # static scalar (closure constant)
-
-        def pv_map(uu, mmf):
-            """(Spm3 @ uu, Svm3 @ uu) — one stacked matmul when folded."""
-            if fold_sv:
-                pv = mmf(SpSv, uu)
-                return pv[:NP2], pv[NP2:]
-            return mmf(Spm3, uu), mmf(Svm3, uu)
-
-        def pullback(a, b, mmf):
-            """Spm3T @ a + Svm3T @ b — one stacked matmul when folded."""
-            if fold_sv:
-                return mmf(SpSvT, jnp.concatenate([a, b], axis=0))
-            return mmf(Spm3T, a) + mmf(Svm3T, b)
+        C_pos = load3(cpos_ref)
+        C_vel = load3(cvel_ref)
+        goal = load3(goal_ref)
+        row = jax.lax.broadcasted_iota(jnp.int32, (NPN, 1), 0)
+        valid = (row < N).astype(jnp.float32)
+        wp_row = w_p * valid * jnp.where(row == N - 1, 1.0 + term, 1.0)
+        eye = jax.lax.broadcasted_iota(
+            jnp.int32, (NPN, NPN), 0
+        ) == jax.lax.broadcasted_iota(jnp.int32, (NPN, NPN), 1)
+        diag_quad = jnp.sum(
+            jnp.where(eye, mats_ref[mat_index["H"]], 0.0), axis=1,
+            keepdims=True,
+        )  # (NPN, 1)
+        hover = (0.0 * valid, 0.0 * valid, hover_z * valid)
+        lb_r = tuple(lb[a] * valid for a in range(3))
+        ub_r = tuple(ub[a] * valid for a in range(3))
+        g_acc = (0.0 * valid, 0.0 * valid, -grav * valid)
+        vmax = vcap_ref[...] if dynamic_vmax else v_max  # (1, Bb) or const
 
         def rollout(uu):
-            dp, dv_ = pv_map(uu, mm)
-            pos = C_pos + dp
-            vel = C_vel + dv_
-            acc = uu * inv_m + g_rep
+            dp = map3("Sp", uu)
+            dv = map3("Sv", uu)
+            pos = tuple(C_pos[a] + dp[a] for a in range(3))
+            vel = tuple(C_vel[a] + dv[a] for a in range(3))
+            acc = tuple(uu[a] * inv_m + g_acc[a] for a in range(3))
             return pos, vel, acc
 
-        def obstacle_terms(pos, want_grad: bool, want_gn: bool,
-                           full_curv: bool = False):
-            """Per-group cost rows (GP, B), pos-space gradient (NP2, B),
-            per-group Hessian block arrays. ``full_curv`` adds the
-            ``h * hess(h)`` term the GN model drops (costs.penalty_blocks:
-            Hp = 2w (1 + h/d) n n^T - 2w (h/d) I — negative tangential
-            curvature, "sliding around the sphere is downhill")."""
-            B = pos.shape[1]
-            J_rows = []
-            grads = []
-            gns = []
-            for g in range(G):
-                px, py, pz = g_axes(pos, g)
-                J = jnp.zeros((1, B), pos.dtype)
-                gx = gy = gz = 0.0
-                hxx = hyy = hzz = hxy = hxz = hyz = 0.0
-                for o in range(K_real):
-                    base = g * 4 * KP
-                    cx = obs[base + o : base + o + 1]
-                    cy = obs[base + KP + o : base + KP + o + 1]
-                    cz = obs[base + 2 * KP + o : base + 2 * KP + o + 1]
-                    r = obs[base + 3 * KP + o : base + 3 * KP + o + 1]
-                    mo = omask[g * KP + o : g * KP + o + 1]
-                    dx = px - cx
-                    dy = py - cy
-                    dz = pz - cz
-                    d = jnp.sqrt(dx * dx + dy * dy + dz * dz + 1e-9)
-                    viol = jnp.maximum(r - d, 0.0) * mo
-                    J = J + jnp.sum(viol * viol, axis=0, keepdims=True)
-                    if want_grad:
-                        coef = (2.0 * w_obs) * viol / d
-                        gx = gx - coef * dx
-                        gy = gy - coef * dy
-                        gz = gz - coef * dz
-                    if want_gn:
-                        act = ((r > d).astype(d.dtype) * mo) * (2.0 * w_obs)
-                        if full_curv:
-                            hd = viol / d
-                            inv_d2 = act * (1.0 + hd) / (d * d)
-                            diag_c = act * hd
-                            hxx = hxx - diag_c
-                            hyy = hyy - diag_c
-                            hzz = hzz - diag_c
-                        else:
-                            inv_d2 = act / (d * d)
-                        hxx = hxx + inv_d2 * dx * dx
-                        hyy = hyy + inv_d2 * dy * dy
-                        hzz = hzz + inv_d2 * dz * dz
-                        hxy = hxy + inv_d2 * dx * dy
-                        hxz = hxz + inv_d2 * dx * dz
-                        hyz = hyz + inv_d2 * dy * dz
-                J_rows.append(w_obs * J)
-                if want_grad:
-                    zero = jnp.zeros_like(px)
-                    grads.append((gx + zero, gy + zero, gz + zero))
-                if want_gn:
-                    gns.append((hxx, hyy, hzz, hxy, hxz, hyz))
-            grad = cat_groups(grads) if want_grad else None
-            return J_rows, grad, gns
+        def sphere(o, pos):
+            """Offsets to sphere ``o``, its distance and hinge violation."""
+            r = obs_ref[4 * o + 3, :][None, :]
+            dx = pos[0] - obs_ref[4 * o, :][None, :]
+            dy = pos[1] - obs_ref[4 * o + 1, :][None, :]
+            dz = pos[2] - obs_ref[4 * o + 2, :][None, :]
+            d = jnp.sqrt(dx * dx + dy * dy + dz * dz + 1e-9)
+            return r, dx, dy, dz, d, jnp.maximum(r - d, 0.0) * valid
+
+        def obstacle_cost(pos):
+            """Obstacle cost density (NPN, Bb)."""
+
+            def body(o, dens):
+                viol = sphere(o, pos)[-1]
+                return dens + viol * viol
+
+            return w_obs * jax.lax.fori_loop(0, K, body, 0.0 * pos[0])
+
+        def obstacle_grad_gn(pos, fc):
+            """Position-space gradient and the per-step 3x3 Gauss-Newton
+            blocks (costs.penalty_blocks; with ``fc`` = 1 the h * hess(h)
+            term too: Hp = 2w (1 + h/d) n n^T - 2w (h/d) I)."""
+
+            def body(o, carry):
+                gx, gy, gz, hxx, hyy, hzz, hxy, hxz, hyz = carry
+                r, dx, dy, dz, d, viol = sphere(o, pos)
+                coef = (2.0 * w_obs) * viol / d
+                act = (r > d).astype(jnp.float32) * valid * (2.0 * w_obs)
+                hd = viol / d
+                inv_d2 = act * (1.0 + fc * hd) / (d * d)
+                diag_c = fc * act * hd
+                return (
+                    gx - coef * dx, gy - coef * dy, gz - coef * dz,
+                    hxx + inv_d2 * dx * dx - diag_c,
+                    hyy + inv_d2 * dy * dy - diag_c,
+                    hzz + inv_d2 * dz * dz - diag_c,
+                    hxy + inv_d2 * dx * dy,
+                    hxz + inv_d2 * dx * dz,
+                    hyz + inv_d2 * dy * dz,
+                )
+
+            out = jax.lax.fori_loop(0, K, body, (0.0 * pos[0],) * 9)
+            return out[:3], out[3:]
 
         def cost_terms(pos, vel, acc, uu):
-            """Per-scenario total cost (GP, B) from a precomputed rollout.
-            All quadratic/hinge terms are an elementwise cost *density*
-            over rows, group-summed in one matmul."""
-            pe = pos - goal
-            du = uu - hover
-            D = (
-                wp_row * pe * pe
-                + w.velocity * vel * vel
-                + w.acceleration * acc * acc
-                + w.thrust * du * du
-            )
+            """Per-scenario total cost (1, Bb) from a rollout: every term
+            is an elementwise density over rows, summed once."""
+            D = 0.0
+            for a in range(3):
+                pe = pos[a] - goal[a]
+                du = uu[a] - hover[a]
+                D = D + (
+                    wp_row * pe * pe
+                    + w_v * vel[a] * vel[a]
+                    + w_a * acc[a] * acc[a]
+                    + w_t * du * du
+                )
+                if use_vel_hinge:
+                    vv = jnp.maximum(jnp.abs(vel[a]) - vmax, 0.0)
+                    D = D + w_vb * vv * vv
             if use_ground:
-                gv = jnp.maximum(z_min - pos, 0.0) * zrow
+                gv = jnp.maximum(z_min - pos[2], 0.0) * valid
                 D = D + w_g * gv * gv
-            if use_vel_hinge:
-                vv = jnp.maximum(jnp.abs(vel) - vmax_full, 0.0)
-                D = D + w_vb * vv * vv
-            J = gsum(D)
             if use_obstacles:
-                Jo, _, _ = obstacle_terms(pos, False, False)
-                J = [a + b for a, b in zip(J, Jo)]
-            if use_thrust_hinge:
-                # cross-axis hinges (costs.condensed_cost tilt/thrust_norm):
-                # per-group because lat/norm couple the 3 axis row blocks
-                for g in range(G):
-                    ux, uy, uz = g_axes(uu, g)
-                    extra = jnp.zeros((1, ux.shape[1]), uu.dtype)
-                    if w_tilt > 0.0:
-                        lat = jnp.sqrt(ux * ux + uy * uy + 1e-9)
-                        tv = jnp.maximum(lat - tan_max * uz, 0.0)
-                        extra = extra + w_tilt * jnp.sum(
-                            tv * tv, axis=0, keepdims=True
-                        )
-                    if w_tn > 0.0:
-                        un = jnp.sqrt(ux * ux + uy * uy + uz * uz + 1e-9)
-                        nv = jnp.maximum(un - u_max, 0.0)
-                        extra = extra + w_tn * jnp.sum(
-                            nv * nv, axis=0, keepdims=True
-                        )
-                    J[g] = J[g] + extra
-            return J
+                D = D + obstacle_cost(pos)
+            ux, uy, uz = uu
+            if w_tilt > 0.0:
+                lat = jnp.sqrt(ux * ux + uy * uy + 1e-9)
+                tv = jnp.maximum(lat - tan_max * uz, 0.0) * valid
+                D = D + w_tilt * tv * tv
+            if w_tn > 0.0:
+                un = jnp.sqrt(ux * ux + uy * uy + uz * uz + 1e-9)
+                nv = jnp.maximum(un - u_max, 0.0) * valid
+                D = D + w_tn * nv * nv
+            return colsum(D)
 
-        def make_newton_body(full_curv):
-            return functools.partial(newton_body, full_curv)
-
-        def newton_body(full_curv, _, carry):
+        def newton_round(it, carry):
             u, min_imp = carry
+            # stage flag: 0 = Gauss-Newton warmup, 1 = full curvature; the
+            # ftol stall tracker restarts at the switch (stage-2
+            # directions differ), as in solve_se3_mpc
+            fc = (it >= warmup).astype(jnp.float32)
+            min_imp = jnp.where(it == warmup, jnp.inf, min_imp)
             pos, vel, acc = rollout(u)
+            zero = 0.0 * u[0]
 
             # gradient in physical space, pulled back to thrust space
-            gpos = 2.0 * wp_row * (pos - goal)
+            gpos = [2.0 * wp_row * (pos[a] - goal[a]) for a in range(3)]
+            hp = (zero,) * 6
             if use_obstacles:
-                _, g_obs, gns = obstacle_terms(pos, True, True, full_curv)
-                gpos = gpos + g_obs
-            else:
-                zero_nb = jnp.zeros((N, u.shape[1]), u.dtype)
-                gns = [(zero_nb,) * 6 for _ in range(G)]
+                g_obs, hp = obstacle_grad_gn(pos, fc)
+                gpos = [gpos[a] + g_obs[a] for a in range(3)]
             if use_ground:
-                gv = jnp.maximum(z_min - pos, 0.0) * zrow
-                gpos = gpos - 2.0 * w_g * gv
-                gz_active = (2.0 * w_g) * ((pos < z_min).astype(u.dtype))
-                gns = [
-                    (
-                        h[0],
-                        h[1],
-                        h[2] + g_axes(gz_active, g)[2],
-                        h[3],
-                        h[4],
-                        h[5],
-                    )
-                    for g, h in enumerate(gns)
-                ]
-            gvel = 2.0 * w.velocity * vel
+                gv = jnp.maximum(z_min - pos[2], 0.0) * valid
+                gpos[2] = gpos[2] - 2.0 * w_g * gv
+                gz_act = (2.0 * w_g) * (pos[2] < z_min).astype(jnp.float32)
+                hp = hp[:2] + (hp[2] + gz_act * valid,) + hp[3:]
+            gvel = [2.0 * w_v * vel[a] for a in range(3)]
+            hv = (zero,) * 3
             if use_vel_hinge:
-                vv = jnp.maximum(jnp.abs(vel) - vmax_full, 0.0)
-                gvel = gvel + (2.0 * w_vb) * jnp.sign(vel) * vv
-                hv = (2.0 * w_vb) * (jnp.abs(vel) > vmax_full).astype(
-                    u.dtype
+                vv = [jnp.maximum(jnp.abs(vel[a]) - vmax, 0.0) for a in range(3)]
+                gvel = [
+                    gvel[a] + (2.0 * w_vb) * jnp.sign(vel[a]) * vv[a]
+                    for a in range(3)
+                ]
+                hv = tuple(
+                    (2.0 * w_vb)
+                    * (jnp.abs(vel[a]) > vmax).astype(jnp.float32)
+                    for a in range(3)
                 )
-            grad = (
-                pullback(gpos, gvel, mm)
-                + (2.0 * w.acceleration * inv_m) * acc
-                + (2.0 * w.thrust) * (u - hover)
-            )
+            pb_p = map3("SpT", gpos)
+            pb_v = map3("SvT", gvel)
+            grad = [
+                pb_p[a] + pb_v[a]
+                + (2.0 * w_a * inv_m) * acc[a]
+                + (2.0 * w_t) * (u[a] - hover[a])
+                for a in range(3)
+            ]
 
             # thrust-space hinges (tilt cone / total norm): gradient plus
-            # rank-1 GN data per group — (act, jac) pairs consumed by the
-            # CG matvec and the Jacobi diagonal below. Matches
-            # costs.penalty_blocks (Hu = 2 w 1{viol} (dv)(dv)^T).
-            thu = []
-            if use_thrust_hinge:
-                tgrads = []
-                tdiags = []
-                for g in range(G):
-                    ux, uy, uz = g_axes(u, g)
-                    zero = jnp.zeros_like(ux)
-                    gx, gy, gz = zero, zero, zero
-                    dgx, dgy, dgz = zero, zero, zero
-                    at_ = jx = jy = an_ = nx = ny = nz = None
-                    ct_ = cn_ = None  # full-curvature coefficients
-                    if w_tilt > 0.0:
-                        lat = jnp.sqrt(ux * ux + uy * uy + 1e-9)
-                        tv = jnp.maximum(lat - tan_max * uz, 0.0)
-                        jx, jy = ux / lat, uy / lat
-                        c = (2.0 * w_tilt) * tv
-                        gx = gx + c * jx
-                        gy = gy + c * jy
-                        gz = gz - tan_max * c
-                        at_ = (2.0 * w_tilt) * (
-                            lat - tan_max * uz > 0.0
-                        ).astype(u.dtype)
-                        dgx = dgx + at_ * jx * jx
-                        dgy = dgy + at_ * jy * jy
-                        dgz = dgz + at_ * (tan_max * tan_max)
-                        if full_curv:
-                            # + 2 w tv hess(lat) = c (I2 - q q^T) / lat
-                            # (convex, PSD; costs.penalty_blocks)
-                            ct_ = c / lat
-                            dgx = dgx + ct_ * (1.0 - jx * jx)
-                            dgy = dgy + ct_ * (1.0 - jy * jy)
-                    if w_tn > 0.0:
-                        un = jnp.sqrt(ux * ux + uy * uy + uz * uz + 1e-9)
-                        nvv = jnp.maximum(un - u_max, 0.0)
-                        nx, ny, nz = ux / un, uy / un, uz / un
-                        cng = (2.0 * w_tn) * nvv
-                        gx = gx + cng * nx
-                        gy = gy + cng * ny
-                        gz = gz + cng * nz
-                        an_ = (2.0 * w_tn) * (un > u_max).astype(u.dtype)
-                        dgx = dgx + an_ * nx * nx
-                        dgy = dgy + an_ * ny * ny
-                        dgz = dgz + an_ * nz * nz
-                        if full_curv:
-                            # + 2 w nvv hess(||u||) = cng (I - n n^T)/||u||
-                            cn_ = cng / un
-                            dgx = dgx + cn_ * (1.0 - nx * nx)
-                            dgy = dgy + cn_ * (1.0 - ny * ny)
-                            dgz = dgz + cn_ * (1.0 - nz * nz)
-                    tgrads.append((gx, gy, gz))
-                    tdiags.append((dgx, dgy, dgz))
-                    thu.append((at_, jx, jy, an_, nx, ny, nz, ct_, cn_))
-                grad = grad + cat_groups(tgrads)
+            # rank-1 GN data (costs.penalty_blocks: Hu = 2 w 1{viol}
+            # (dv)(dv)^T), consumed by the CG matvec and Jacobi diagonal
+            ux, uy, uz = u
+            tdiag = [zero, zero, zero]
+            tilt = norm = None
+            if w_tilt > 0.0:
+                lat = jnp.sqrt(ux * ux + uy * uy + 1e-9)
+                tv = jnp.maximum(lat - tan_max * uz, 0.0) * valid
+                jx, jy = ux / lat, uy / lat
+                c = (2.0 * w_tilt) * tv
+                grad[0] = grad[0] + c * jx
+                grad[1] = grad[1] + c * jy
+                grad[2] = grad[2] - tan_max * c
+                at_ = (2.0 * w_tilt) * valid * (
+                    lat - tan_max * uz > 0.0
+                ).astype(jnp.float32)
+                # full curvature: + 2 w tv hess(lat) = c (I2 - q q^T) / lat
+                ct_ = fc * c / lat
+                tdiag[0] = tdiag[0] + at_ * jx * jx + ct_ * (1.0 - jx * jx)
+                tdiag[1] = tdiag[1] + at_ * jy * jy + ct_ * (1.0 - jy * jy)
+                tdiag[2] = tdiag[2] + at_ * (tan_max * tan_max)
+                tilt = (at_, jx, jy, ct_)
+            if w_tn > 0.0:
+                un = jnp.sqrt(ux * ux + uy * uy + uz * uz + 1e-9)
+                nvv = jnp.maximum(un - u_max, 0.0) * valid
+                nvec = (ux / un, uy / un, uz / un)
+                cng = (2.0 * w_tn) * nvv
+                an_ = (2.0 * w_tn) * valid * (un > u_max).astype(jnp.float32)
+                # full curvature: + 2 w nvv hess(||u||) = cng (I - n n^T) / ||u||
+                cn_ = fc * cng / un
+                for a in range(3):
+                    grad[a] = grad[a] + cng * nvec[a]
+                    tdiag[a] = (
+                        tdiag[a] + an_ * nvec[a] * nvec[a]
+                        + cn_ * (1.0 - nvec[a] * nvec[a])
+                    )
+                norm = (an_, nvec, cn_)
 
-            # active-set mask (bound + outward gradient)
+            # active set: at a bound with the gradient pushing outward
             eps = 1e-6
-            at_lo = (u <= lb + eps) & (grad > 0)
-            at_hi = (u >= ub - eps) & (grad < 0)
-            free = (~(at_lo | at_hi)).astype(u.dtype)
+            free = tuple(
+                1.0
+                - (
+                    ((u[a] <= lb_r[a] + eps) & (grad[a] > 0))
+                    | ((u[a] >= ub_r[a] - eps) & (grad[a] < 0))
+                ).astype(jnp.float32)
+                for a in range(3)
+            )
 
             # Jacobi preconditioner diagonal
-            diag = diag_quad + jnp.zeros_like(u)
-            if use_penalties:
-                hp_diag = cat_groups([(h[0], h[1], h[2]) for h in gns])
-                if use_vel_hinge and fold_sv:
-                    diag = diag + mm(
-                        Sq2T, jnp.concatenate([hp_diag, hv], axis=0)
-                    )
-                else:
-                    diag = diag + mm(Sp2T, hp_diag)
-                    if use_vel_hinge:
-                        diag = diag + mm(Sv2T, hv)
-            if use_thrust_hinge:
-                diag = diag + cat_groups(tdiags)
-            if full_curv:
-                # the full obstacle Hessian can drive diagonal entries
-                # negative; clamp the Jacobi preconditioner to a fraction
-                # of the quadratic diagonal. The absolute 1e-8 floor is
-                # load-bearing: on the NP1 PADDING rows diag == diag_quad
-                # == 0, and without it minv = 1/0 = inf there, z0 = inf*0
-                # = NaN, and one NaN in the CG sums silently freezes the
-                # whole full-curvature stage (every line-search comparison
-                # goes false) — only at horizons where 3N % 8 != 0, which
-                # is why N=8 interpreter tests never caught it.
-                minv = free / jnp.maximum(
-                    jnp.maximum(diag, 0.1 * diag_quad), 1e-8
-                )
-            else:
-                minv = free / jnp.maximum(diag, 1e-8)
+            diag = [diag_quad + tdiag[a] for a in range(3)]
+            if use_pos_pen:
+                dp = map3("Sp2T", hp[:3])
+                diag = [diag[a] + dp[a] for a in range(3)]
+            if use_vel_hinge:
+                dvh = map3("Sv2T", hv)
+                diag = [diag[a] + dvh[a] for a in range(3)]
+            # the full obstacle Hessian can drive diagonal entries
+            # negative: at full curvature clamp to a fraction of the
+            # quadratic diagonal (at fc = 0 this is max(diag, 1e-8)). The
+            # absolute 1e-8 floor keeps padding rows (diag == 0) finite:
+            # there r == 0, so z = minv * r stays exactly 0.
+            minv = tuple(
+                free[a]
+                / jnp.maximum(jnp.maximum(diag[a], fc * 0.1 * diag_quad), 1e-8)
+                for a in range(3)
+            )
+
+            hxx, hyy, hzz, hxy, hxz, hyz = hp
 
             def matvec(dv):
-                dv = dv * free
-                if fold_sv and use_penalties:
-                    # [H3; Spm3(; Svm3)] @ dv: one MXU issue for all of
-                    # them (the Svm3 third rides along only when the
-                    # velocity hinge will consume it)
-                    hy = mmc(HSpSv, dv)
-                    out = hy[:NP2]
-                    y = hy[NP2 : 2 * NP2]
-                    yv = hy[2 * NP2 :] if use_vel_hinge else None
-                else:
-                    out = mmc(H3, dv)
-                    y = mmc(Spm3, dv) if use_penalties else None
-                    yv = None
-                if use_penalties:
-                    zs = []
-                    for g in range(G):
-                        yx, yy_, yz = g_axes(y, g)
-                        hxx, hyy, hzz, hxy, hxz, hyz = gns[g]
-                        zs.append(
-                            (
-                                hxx * yx + hxy * yy_ + hxz * yz,
-                                hxy * yx + hyy * yy_ + hyz * yz,
-                                hxz * yx + hyz * yy_ + hzz * yz,
-                            )
+                dv = tuple(dv[a] * free[a] for a in range(3))
+                out = list(map3("H", dv))
+                if use_pos_pen:
+                    y = map3("Sp", dv)
+                    z = (
+                        hxx * y[0] + hxy * y[1] + hxz * y[2],
+                        hxy * y[0] + hyy * y[1] + hyz * y[2],
+                        hxz * y[0] + hyz * y[1] + hzz * y[2],
+                    )
+                    zb = map3("SpT", z)
+                    out = [out[a] + zb[a] for a in range(3)]
+                if use_vel_hinge:
+                    yv = map3("Sv", dv)
+                    zv = map3("SvT", tuple(hv[a] * yv[a] for a in range(3)))
+                    out = [out[a] + zv[a] for a in range(3)]
+                if tilt is not None:
+                    at_, jx, jy, ct_ = tilt
+                    s = at_ * (jx * dv[0] + jy * dv[1] - tan_max * dv[2])
+                    sq = jx * dv[0] + jy * dv[1]
+                    # GN block, plus c (I2 - q q^T) / lat on the xy block
+                    out[0] = out[0] + s * jx + ct_ * (dv[0] - jx * sq)
+                    out[1] = out[1] + s * jy + ct_ * (dv[1] - jy * sq)
+                    out[2] = out[2] - tan_max * s
+                if norm is not None:
+                    an_, nvec, cn_ = norm
+                    sn = nvec[0] * dv[0] + nvec[1] * dv[1] + nvec[2] * dv[2]
+                    for a in range(3):
+                        out[a] = (
+                            out[a] + an_ * sn * nvec[a]
+                            + cn_ * (dv[a] - nvec[a] * sn)
                         )
-                    if use_vel_hinge:
-                        if yv is None:
-                            yv = mmc(Svm3, dv)
-                        out = out + pullback(cat_groups(zs), hv * yv, mmc)
-                    else:
-                        out = out + mmc(Spm3T, cat_groups(zs))
-                if use_thrust_hinge:
-                    ts = []
-                    for g in range(G):
-                        dxg, dyg, dzg = g_axes(dv, g)
-                        at_, jx, jy, an_, nx, ny, nz, ct_, cn_ = thu[g]
-                        ox = jnp.zeros_like(dxg)
-                        oy, oz = ox, ox
-                        if at_ is not None:
-                            s = at_ * (jx * dxg + jy * dyg - tan_max * dzg)
-                            ox = ox + s * jx
-                            oy = oy + s * jy
-                            oz = oz - tan_max * s
-                        if ct_ is not None:
-                            # c (I2 - q q^T)/lat on the xy block
-                            sq = jx * dxg + jy * dyg
-                            ox = ox + ct_ * (dxg - jx * sq)
-                            oy = oy + ct_ * (dyg - jy * sq)
-                        if an_ is not None:
-                            s = an_ * (nx * dxg + ny * dyg + nz * dzg)
-                            ox = ox + s * nx
-                            oy = oy + s * ny
-                            oz = oz + s * nz
-                        if cn_ is not None:
-                            sn = nx * dxg + ny * dyg + nz * dzg
-                            ox = ox + cn_ * (dxg - nx * sn)
-                            oy = oy + cn_ * (dyg - ny * sn)
-                            oz = oz + cn_ * (dzg - nz * sn)
-                        ts.append((ox, oy, oz))
-                    out = out + cat_groups(ts)
-                return out * free
+                return tuple(out[a] * free[a] for a in range(3))
 
-            b = -(grad * free)
-            r0 = b
-            z0 = minv * r0
-            rz0 = jnp.concatenate(gsum(r0 * z0), axis=0)  # (G, B)
-            d0 = jnp.zeros_like(b)
+            r0 = tuple(-(grad[a] * free[a]) for a in range(3))
+            z0 = tuple(minv[a] * r0[a] for a in range(3))
+            rz0 = dot3(r0, z0)  # (1, Bb)
 
             def cg_body(_, carry):
-                # NOTE: every carried value is f32 — Mosaic on this
-                # toolchain fails to legalize `scf.for` with i1 vector
-                # loop-carries (round-2 regression: a bool `alive` here
-                # produced `vector<8x128xi1>` carries and broke TPU
-                # compile). `alive` is a 0/1 f32 row, masked
-                # arithmetically like `free`/`omask`.
                 d, r, z, p, rz, alive = carry
                 ap = matvec(p)
-                pap = jnp.concatenate(gsum(p * ap), axis=0)
-                # Steihaug truncation: on (near-)negative curvature,
-                # freeze this scenario's direction at the current partial
-                # sum — matches solve_se3_mpc exactly, including the
-                # SCALE-INVARIANT guard (pap above a Rayleigh-quotient
-                # floor of |p|^2): an absolute epsilon lets rounding-level
-                # positive pap through and alpha = rz/pap explodes.
-                pp = jnp.concatenate(gsum(p * p), axis=0)
-                alive = alive * (pap > 1e-8 * pp).astype(d.dtype)
-                ok = alive
-                alpha = ok * rz / jnp.maximum(pap, 1e-12)  # (G, B)
-                alpha_rows = gexpand([alpha[g : g + 1] for g in range(G)])
-                d = d + alpha_rows * p
-                r = r - alpha_rows * ap
-                z = minv * r
-                rz_new = jnp.concatenate(gsum(r * z), axis=0)
-                beta = ok * rz_new / jnp.maximum(rz, 1e-12)
-                beta_rows = gexpand([beta[g : g + 1] for g in range(G)])
-                ok_rows = gexpand([ok[g : g + 1] for g in range(G)])
-                p = z * ok_rows + beta_rows * p + (1.0 - ok_rows) * p
-                rz = ok * rz_new + (1.0 - ok) * rz
+                pap = dot3(p, ap)
+                # Steihaug truncation: on (near-)negative curvature freeze
+                # this scenario's direction at the current partial sum,
+                # with the scale-invariant guard of solve_se3_mpc (pap
+                # above a Rayleigh-quotient floor of |p|^2)
+                pp = dot3(p, p)
+                alive = alive * (pap > 1e-8 * pp).astype(jnp.float32)
+                alpha = alive * rz / jnp.maximum(pap, 1e-12)
+                d = tuple(d[a] + alpha * p[a] for a in range(3))
+                r = tuple(r[a] - alpha * ap[a] for a in range(3))
+                z = tuple(minv[a] * r[a] for a in range(3))
+                rz_new = dot3(r, z)
+                beta = alive * rz_new / jnp.maximum(rz, 1e-12)
+                p = tuple(
+                    z[a] * alive + beta * p[a] + (1.0 - alive) * p[a]
+                    for a in range(3)
+                )
+                rz = alive * rz_new + (1.0 - alive) * rz
                 return d, r, z, p, rz, alive
 
-            alive0 = jnp.ones(rz0.shape, u.dtype)
             d, *_ = jax.lax.fori_loop(
                 0, config.cg_iterations, cg_body,
-                (d0, r0, z0, z0, rz0, alive0),
+                ((zero,) * 3, r0, z0, z0, rz0, 1.0 + 0.0 * rz0),
             )
-            if full_curv:
-                # negative curvature on the very first CG step leaves
-                # d = 0; fall back to preconditioned steepest descent
-                dn = jnp.concatenate(gsum(jnp.abs(d)), axis=0)  # (G, B)
-                dn_rows = gexpand([dn[g : g + 1] for g in range(G)])
-                d = jnp.where(dn_rows > 0.0, d, z0)
-            d = d * free
+            # at full curvature, negative curvature on the very first CG
+            # step leaves d = 0: fall back to preconditioned steepest
+            # descent (GN rounds keep d)
+            dn = dot3(tuple(jnp.abs(x) for x in d), (1.0, 1.0, 1.0))
+            keep = (dn > 0.0) | (fc == 0.0)
+            d = tuple(jnp.where(keep, d[a], z0[a]) * free[a] for a in range(3))
 
-            # projected line search (current iterate is the fallback;
-            # strict-improvement update == argmin with earliest-tie rule).
-            # Candidate rollouts are DELTA-form: pos_a = pos + Spm3(cand-u)
-            # — in exact arithmetic identical to C_pos + Spm3*cand (the
-            # map is affine), but the matmul acts on the small step delta,
-            # so it can run at bf16 matmul precision (mmc): the ~0.4%
-            # relative error applies to the *step's* position contribution,
-            # not the absolute position — cost error ~1e-5 relative,
-            # flipping only true near-ties (the existing XLA-vs-fused
-            # contract). Measured: the line search was bound by its
-            # HIGHEST-precision rollout matmuls (6 MXU passes each); this
-            # makes them single-pass (docs/kernel.md table).
-            cur_cost = cost_terms(pos, vel, acc, u)  # list of G (1, B)
-            best_cost = list(cur_cost)
-            best_u = u
-            for alpha in config.line_search_alphas:
-                cand = jnp.clip(u + alpha * d, lb, ub)
-                du_c = cand - u
-                dpos_c, dvel_c = pv_map(du_c, mmc)
-                pos_c = pos + dpos_c
-                vel_c = vel + dvel_c
-                acc_c = cand * inv_m + g_rep
-                cJ = cost_terms(pos_c, vel_c, acc_c, cand)
-                better = [cj < bc for cj, bc in zip(cJ, best_cost)]
-                best_cost = [
-                    jnp.where(bt, cj, bc)
-                    for bt, cj, bc in zip(better, cJ, best_cost)
-                ]
-                B = u.shape[1]
-                brows = jnp.concatenate(
-                    [jnp.broadcast_to(bt, (NP1, B)) for bt in better], axis=0
+            # projected line search; the current iterate is the fallback
+            # and a strict-improvement update is argmin with the earliest
+            # tie winning, as in solve_se3_mpc
+            cur_cost = cost_terms(pos, vel, acc, u)
+
+            def ls_body(k, best):
+                best_cost, best_u = best
+                alpha = jnp.float32(alphas[0])
+                for j, a in enumerate(alphas[1:], 1):
+                    alpha = jnp.where(k == j, jnp.float32(a), alpha)
+                cand = tuple(
+                    jnp.clip(u[a] + alpha * d[a], lb_r[a], ub_r[a])
+                    for a in range(3)
                 )
-                best_u = jnp.where(brows, cand, best_u)
-            # realized relative improvement this round; the ftol stall
-            # criterion takes the MIN over the stage's rounds (matches
-            # planning.se3_mpc.solve_se3_mpc exactly)
-            imp = jnp.concatenate(
-                [
-                    (cc - bc) / (1.0 + jnp.abs(bc))
-                    for cc, bc in zip(cur_cost, best_cost)
-                ],
-                axis=0,
-            )  # (G, B)
+                cJ = cost_terms(*rollout(cand), cand)
+                better = cJ < best_cost
+                return (
+                    jnp.where(better, cJ, best_cost),
+                    tuple(jnp.where(better, cand[a], best_u[a]) for a in range(3)),
+                )
+
+            best_cost, best_u = jax.lax.fori_loop(
+                0, len(alphas), ls_body, (cur_cost, u)
+            )
+            # realized relative improvement; the ftol stall criterion
+            # takes the MIN over the stage's rounds
+            imp = (cur_cost - best_cost) / (1.0 + jnp.abs(best_cost))
             return best_u, jnp.minimum(min_imp, imp)
 
-        u0k = u_ref[:]
-        imp0 = jnp.full((G, u0k.shape[1]), jnp.inf, u0k.dtype)
-        warmup = (
-            min(config.gn_warmup_iterations, config.max_iterations)
-            if config.newton_full_curvature
-            else config.max_iterations
-        )
+        u = load3(u_ref)
+        imp0 = jnp.full((1, u[0].shape[1]), jnp.inf, jnp.float32)
         u, imp = jax.lax.fori_loop(
-            0, warmup, make_newton_body(False), (u0k, imp0)
+            0, config.max_iterations, newton_round, (u, imp0)
         )
-        rest = config.max_iterations - warmup
-        if config.newton_full_curvature and rest > 0:
-            # stage 2: full-curvature Newton from the GN basin; the
-            # stall tracker restarts (stage-2 directions differ)
-            u, imp = jax.lax.fori_loop(
-                0, rest, make_newton_body(True), (u, imp0)
-            )
-        # final EXACT rollout + cost in-kernel (fp32 HIGHEST path, not
-        # the bf16 delta-form line-search estimates): emitting
-        # (pos, vel, cost) saves the host-side finalize a rollout and a
-        # full cost evaluation — dozens of launch-bound XLA kernels per
-        # solve that dominated the two-phase pipeline's fixed cost.
+        # exact rollout + cost of the final iterate, so the host-side
+        # finalize needs no further device work
         pos_f, vel_f, acc_f = rollout(u)
-        J_f = jnp.concatenate(cost_terms(pos_f, vel_f, acc_f, u), axis=0)
-        out_ref[:] = u
-        pos_ref[:] = pos_f
-        vel_ref[:] = vel_f
-        imp_ref[:] = jnp.pad(imp, ((0, imp_ref.shape[0] - G), (0, 0)))
-        cost_ref[:] = jnp.pad(J_f, ((0, cost_ref.shape[0] - G), (0, 0)))
+        J_f = cost_terms(pos_f, vel_f, acc_f, u)
+        for a in range(3):
+            u_out[a] = u[a]
+            pos_out[a] = pos_f[a]
+            vel_out[a] = vel_f[a]
+        sc_out[0:1, :] = imp
+        sc_out[1:2, :] = J_f
 
     return kernel
-
-
-def _pack_rows(x: Array, nb: int, G: int, Bb: int) -> Array:
-    """Per-scenario rows (B_pad, R) -> group-stacked lanes (G*R, nb*Bb).
-
-    Lane column ``i*Bb + j`` of block ``i`` holds scenarios
-    ``i*G*Bb + g*Bb + j`` in group rows ``g*R..(g+1)*R``.
-    """
-    R = x.shape[1]
-    t = x.reshape(nb, G, Bb, R)
-    t = jnp.transpose(t, (1, 3, 0, 2))  # (G, R, nb, Bb)
-    return t.reshape(G * R, nb * Bb)
-
-
-def _unpack_rows(xt: Array, nb: int, G: int, Bb: int) -> Array:
-    """(G*R, nb*Bb) -> per-scenario rows (B_pad, R)."""
-    R = xt.shape[0] // G
-    t = xt.reshape(G, R, nb, Bb)
-    t = jnp.transpose(t, (2, 0, 3, 1))  # (nb, G, Bb, R)
-    return t.reshape(nb * G * Bb, R)
 
 
 @functools.partial(
     jax.jit,
     static_argnames=(
-        "config", "use_obstacles", "block_b", "interpret", "fast_cg",
-        "groups", "fold_sv",
+        "config", "use_obstacles", "block_b", "interpret",
     ),
 )
 def solve_thrusts_fused(
@@ -808,167 +519,101 @@ def solve_thrusts_fused(
     prob: costs.Problem,
     u_init: Array,
     use_obstacles: bool = True,
-    block_b: int = 1024,
+    block_b: int = 16,
     interpret: bool = False,
-    fast_cg: bool = True,
-    groups: int = 1,
-    fold_sv: bool = True,
 ) -> tuple:
     """Run the fused solve; returns ``(thrusts, min_improvement,
     positions, velocities, cost)``: thrusts/positions/velocities have
     ``u_init``'s shape, min_improvement and cost are batch-shaped.
     min_improvement is the minimum realized relative cost decrease over
-    the final Newton stage (the ftol convergence-criterion input,
-    matching the XLA path); positions/velocities/cost come from an EXACT
-    in-kernel fp32 rollout + cost pass of the final iterate, so the
-    host-side finalize needs no further math (the post-kernel XLA
-    rollout/cost passes were launch-bound and dominated the two-phase
-    solve's fixed overhead).
+    the final Newton stage (the ftol input, as on the XLA path);
+    positions/velocities/cost come from the kernel's exact fp32 rollout
+    and cost of the final iterate.
 
-    Accepts any leading batch shape (flattened internally); the scenario
-    batch is padded to a multiple of ``groups * block_b`` and blocked
-    across a 1-D grid of ``block_b``-lane tiles with ``groups`` scenarios
-    stacked per lane column.
+    Accepts any leading batch shape (flattened internally). The batch is
+    padded to a multiple of the scenario block (:func:`block_size`), one
+    program per block. ``interpret=True`` runs the kernel in the Pallas
+    interpreter (CPU tests); otherwise it compiles through Triton.
     """
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pl_triton
 
     N = config.prediction_horizon
-    G = groups
-    ops = _static_operands(config, G)
-    NP1, NP2 = ops["NP1"], ops["NP2"]
-    K = prob.obstacles.shape[-2]
-    KP = _round_up(max(K, 1), 8)
+    ops = _axis_operands(config)
+    NPN = ops["NPN"]
+    K = prob.obstacles.shape[-2] if use_obstacles else 0
+    dtype = jnp.float32
 
     batch_shape = u_init.shape[:-2]
     B = int(np.prod(batch_shape, dtype=np.int64)) if batch_shape else 1
-    # never pad a small batch up to a large block (single-solve fast path);
-    # cap lanes so the kernel's live (NP2, block_b) f32 working set fits
-    # VMEM (~16 MB scoped limit). NP1=64 (N=20), KP=8 at 1024 lanes is
-    # the measured fit (docs/kernel.md: block_b 2048 OOMs at 25 MB;
-    # K=16 at 1024 lanes OOMs at 21.2 MB), so hold
-    # NP2 * max(KP,8)/8 * block_b <= 64 * 1024 — N=40 derates to 512
-    # lanes, K=16 to 512, N=80 to 256, preserving the proven headroom.
-    eff_rows = G * NP1 * max(KP, 8) // 8
-    vmem_lanes = max(128, (65536 // eff_rows) // 128 * 128)
-    block_b = min(block_b, _round_up(max(B, 1), 128), vmem_lanes)
-    SB = G * block_b  # scenarios per block
-    B_pad = _round_up(max(B, 1), SB)
-    nb = B_pad // SB
-    L = nb * block_b  # total lanes
-    dtype = jnp.float32
+    Bb = block_size(B, block_b)
+    B_pad = -(-B // Bb) * Bb
 
     def flat(x, trailing):
         x = jnp.broadcast_to(jnp.asarray(x, dtype), batch_shape + trailing)
         x = x.reshape((B,) + trailing)
-        pad = [(0, B_pad - B)] + [(0, 0)] * len(trailing)
-        return jnp.pad(x, pad)
+        return jnp.pad(x, [(0, B_pad - B)] + [(0, 0)] * len(trailing))
 
-    u0 = flat(u_init, (N, 3))
-    p0 = flat(prob.p0, (3,))
-    v0 = flat(prob.v0, (3,))
+    def axis_rows(x):  # (B_pad, N, 3) -> (3, NPN, B_pad), zero padding rows
+        return jnp.pad(jnp.transpose(x, (2, 1, 0)), ((0, 0), (0, NPN - N), (0, 0)))
+
     if prob.goal.ndim == len(batch_shape) + 2:
         goal = flat(prob.goal, (N, 3))
     else:
-        goal = jnp.broadcast_to(
-            flat(prob.goal, (3,))[:, None, :], (B_pad, N, 3)
-        )
-    obs = flat(prob.obstacles, (K, 4))
-    omask = flat(prob.obstacle_mask.astype(dtype), (K,))
+        goal = jnp.broadcast_to(flat(prob.goal, (3,))[:, None, :], (B_pad, N, 3))
+    p0 = flat(prob.p0, (3,)).T[:, None, :]  # (3, 1, B_pad)
+    v0 = flat(prob.v0, (3,)).T[:, None, :]
+    g_enu = jnp.asarray([0.0, 0.0, -config.gravity], dtype)[:, None, None]
+    col = lambda name: jnp.asarray(ops[name])[None, :, None]  # noqa: E731
+    C_pos = col("valid") * p0 + col("t") * v0 + col("spg") * g_enu
+    C_vel = col("valid") * v0 + col("svg") * g_enu
 
-    def scen_rows(x):  # (B_pad, N, 3) -> (B_pad, NP1) axis-major rows
-        r = jnp.transpose(x, (0, 2, 1)).reshape(B_pad, 3 * N)
-        return jnp.pad(r, ((0, 0), (0, NP1 - 3 * N)))
-
-    def rep_axes(x):  # (B_pad, 3) -> (B_pad, NP1): each axis repeated N
-        r = jnp.repeat(x, N, axis=1)
-        return jnp.pad(r, ((0, 0), (0, NP1 - 3 * N)))
-
-    t_row1 = jnp.asarray(ops["t_row1"], dtype)  # already (NP1,)
-    spg1 = jnp.asarray(ops["spg1"], dtype)
-    svg1 = jnp.asarray(ops["svg1"], dtype)
-    C_pos = rep_axes(p0) + t_row1 * rep_axes(v0) + spg1
-    C_vel = rep_axes(v0) + svg1
-
-    obs_rows = jnp.pad(obs, ((0, 0), (0, KP - K), (0, 0)))
-    obs_rows = jnp.transpose(obs_rows, (0, 2, 1)).reshape(B_pad, 4 * KP)
-    mask_rows = jnp.pad(omask, ((0, 0), (0, KP - K)))
-
-    pk = lambda x: _pack_rows(x, nb, G, block_b)  # noqa: E731
-    per_block = [
-        pk(scen_rows(u0)),
-        pk(C_pos),
-        pk(C_vel),
-        pk(scen_rows(goal)),
-        pk(obs_rows),
-        pk(mask_rows),
-    ]
+    args = [axis_rows(flat(u_init, (N, 3))), C_pos, C_vel, axis_rows(goal)]
+    spec3 = pl.BlockSpec((3, NPN, Bb), lambda i: (0, 0, i))
+    rows = lambda r: pl.BlockSpec((r, Bb), lambda i: (0, i))  # noqa: E731
+    in_specs = [spec3] * 4
+    if K:
+        obs = flat(prob.obstacles, (K, 4))
+        mask = flat(prob.obstacle_mask, (K,)) > 0.5
+        r = jnp.where(mask, obs[..., 3], -1e30)
+        obs = jnp.concatenate([obs[..., :3], r[..., None]], axis=-1)
+        args.append(obs.reshape(B_pad, 4 * K).T)  # rows 4k..4k+3: cx,cy,cz,r
+        in_specs.append(rows(4 * K))
     dynamic_vmax = prob.v_cap is not None
     if dynamic_vmax:
-        vcap_flat = flat(prob.v_cap, ())  # (B_pad,)
-        per_block.append(
-            pk(jnp.broadcast_to(vcap_flat[:, None], (B_pad, 8)))
-        )
-    shared_names = ["H3", "Spm3", "Spm3T", "Svm3", "Svm3T", "Sp2T", "Sv2T"]
-    if fold_sv:
-        # must mirror the kernel's use_vel_hinge (= w_vb > 0): without
-        # the hinge, ship the two-block matvec stack (HSp) and drop the
-        # hinge-only Sq2T — dead MXU work / dead VMEM otherwise
-        vel_hinge = float(config.weights.velocity_bound) > 0.0
-        shared_names += ["SpSv", "SpSvT"]
-        shared_names += ["Sq2T", "HSpSv"] if vel_hinge else ["HSp"]
-    shared = [jnp.asarray(ops[k], dtype) for k in shared_names]
-    vec_names = ["hover", "lb", "ub", "g_acc", "wp_row", "zrow", "diag_quad"]
-    vecs = [jnp.asarray(ops[k], dtype) for k in vec_names]
+        args.append(flat(prob.v_cap, ())[None, :])
+        in_specs.append(rows(1))
+    mats = jnp.asarray(ops["mats"])
+    args.append(mats)
+    in_specs.append(pl.BlockSpec(mats.shape, lambda i: (0, 0, 0)))
 
-    grid = (nb,)
-    bspec = lambda rows: pl.BlockSpec(  # noqa: E731
-        (rows, block_b), lambda i: (0, i), memory_space=pltpu.VMEM
-    )
-    const_spec = lambda shape: pl.BlockSpec(  # noqa: E731
-        shape, lambda i: (0, 0), memory_space=pltpu.VMEM
-    )
-    in_specs = (
-        [bspec(NP2)] * 4
-        + [bspec(G * 4 * KP), bspec(G * KP)]
-        + ([bspec(G * 8)] if dynamic_vmax else [])
-        + [const_spec(s.shape) for s in shared]
-        + [const_spec((NP2, 1))] * len(vecs)
-    )
-
-    kernel = _solver_kernel(
-        config, use_obstacles, NP1, KP, G, fast_cg=fast_cg, K_real=K,
-        dynamic_vmax=dynamic_vmax, fold_sv=fold_sv,
-    )
-    IR = _round_up(G, 8)  # improvement/cost rows, sublane-aligned
-    u_out, pos_out, vel_out, imp_out, cost_out = pl.pallas_call(
+    kernel = _solver_kernel(config, NPN, K, dynamic_vmax)
+    out3 = jax.ShapeDtypeStruct((3, NPN, B_pad), dtype)
+    u_out, pos_out, vel_out, sc_out = pl.pallas_call(
         kernel,
-        out_shape=(
-            jax.ShapeDtypeStruct((NP2, L), dtype),
-            jax.ShapeDtypeStruct((NP2, L), dtype),
-            jax.ShapeDtypeStruct((NP2, L), dtype),
-            jax.ShapeDtypeStruct((IR, L), dtype),
-            jax.ShapeDtypeStruct((IR, L), dtype),
-        ),
-        grid=grid,
+        out_shape=(out3, out3, out3, jax.ShapeDtypeStruct((2, B_pad), dtype)),
+        grid=(B_pad // Bb,),
         in_specs=in_specs,
-        out_specs=(bspec(NP2), bspec(NP2), bspec(NP2), bspec(IR), bspec(IR)),
+        out_specs=(spec3, spec3, spec3, rows(2)),
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=_NUM_WARPS, num_stages=1
+        ),
+        backend="triton",
         interpret=interpret,
-    )(*per_block, *shared, *vecs)
+        name="se3_mpc_solve",
+    )(*args)
 
-    def unrows(xt):  # (NP2-rows, L) -> (..., N, 3)
-        rows = _unpack_rows(xt, nb, G, block_b)[:B, : 3 * N]  # (B, 3N)
-        out = jnp.transpose(rows.reshape(B, 3, N), (0, 2, 1))
+    def unrows(xt):  # (3, NPN, B_pad) -> (..., N, 3)
+        out = jnp.transpose(xt[:, :N, :B], (2, 1, 0))
         return out.reshape(batch_shape + (N, 3)).astype(u_init.dtype)
 
-    def unscalar(xt):  # (IR-rows, L) -> (...,)
-        v = _unpack_rows(xt[:G], nb, G, block_b)[:B, 0]  # (B,)
-        return v.reshape(batch_shape).astype(u_init.dtype)
+    def unscalar(v):  # (B_pad,) -> (...)
+        return v[:B].reshape(batch_shape).astype(u_init.dtype)
 
     return (
         unrows(u_out),
-        unscalar(imp_out),
+        unscalar(sc_out[0]),
         unrows(pos_out),
         unrows(vel_out),
-        unscalar(cost_out),
+        unscalar(sc_out[1]),
     )

@@ -1,13 +1,12 @@
-"""Fused Pallas kernel for the closed-loop control+physics tick block.
+"""Fused Pallas kernel (Triton route) for the closed-loop tick block.
 
 One replan block of the closed-loop simulator runs ``T`` control ticks
 (geometric SE(3) controller + rigid-body plant step) at 400 Hz between
-10 Hz MPC replans. As a ``lax.scan`` of tiny elementwise ops this
-dominates Monte-Carlo time (~93% measured at batch 2048: per-tick
-fixed overhead, not compute). This kernel executes the whole tick block
-in VMEM — state packed as rows over a scenario-lane batch, the tick loop
-unrolled — reducing 2,400 device-loop iterations per episode to
-``num_replans`` kernel calls.
+10 Hz MPC replans. As a ``lax.scan`` that is one device-loop iteration of
+tiny elementwise work per tick (2,400 per 6 s episode). This kernel runs
+the whole tick block in one call: each program owns a block of episodes
+on the minor axis, keeps the state in registers and loops over the ticks
+with a ``fori_loop``.
 
 Scope (asserted): the closed-loop sim configuration —
 
@@ -18,9 +17,10 @@ Scope (asserted): the closed-loop sim configuration —
 Math mirrors :func:`dart_planner_tpu.control.geometric.compute_control`
 and :func:`dart_planner_tpu.sim.physics.rigid_body_step` line for line
 (same masks, clamps, and Rodrigues update); a noise-free parity test
-against the scan path runs in CPU interpreter mode.
+against the scan path runs in interpret mode on the CPU.
 
-State row layout (one (32, B) array):
+State row layout (one (32, B) array; each row is loaded and stored on
+its own, Triton holds no row slices of a loaded block):
   0-2 pos | 3-5 vel | 6-8 omega | 9-17 R row-major | 18-20 integral |
   21-23 last_torque_saturated | 24 failsafe_count | 25 last_valid_thrust
 """
@@ -33,7 +33,7 @@ import jax
 import jax.numpy as jnp
 import numpy as np
 
-from dart_planner_tpu.ops.pallas_mpc import _round_up
+from dart_planner_tpu.ops.pallas_mpc import pow2_at_least
 
 Array = jnp.ndarray
 
@@ -96,43 +96,29 @@ def _tick_kernel(control_cfg, physics_cfg, control_dt: float, T: int,
     def kernel(S_ref, spp_ref, spv_ref, spa_ref, gw_ref, *rest):
         if num_obstacles:
             obs_ref, out_ref, acc_ref = rest
-            obs = obs_ref[:]
         else:
             out_ref, acc_ref = rest
-        S = S_ref[:]
-        spp = spp_ref[:]
-        spv = spv_ref[:]
-        spa = spa_ref[:]
-        gw = gw_ref[:]
 
-        def row(x, i):
-            return x[i : i + 1]
+        def vec(ref, i):
+            return (ref[i, :], ref[i + 1, :], ref[i + 2, :])
 
-        def vec(x, i):
-            return (row(x, i), row(x, i + 1), row(x, i + 2))
+        goal = vec(gw_ref, 0)
+        wind = vec(gw_ref, 3)
+        R0 = tuple(S_ref[9 + k, :] for k in range(9))
+        big = jnp.full_like(goal[0], 1e30)
+        carry0 = (
+            vec(S_ref, 0), vec(S_ref, 3), vec(S_ref, 6), R0,
+            vec(S_ref, 18), vec(S_ref, 21), S_ref[24, :], S_ref[25, :],
+            (big, 0.0 * big, big, big),  # min dist, track sum, min alt, clear
+        )
 
-        pos = vec(S, 0)
-        vel = vec(S, 3)
-        omega = vec(S, 6)
-        R = [[row(S, 9 + 3 * i + j) for j in range(3)] for i in range(3)]
-        integral = vec(S, 18)
-        lt_sat = vec(S, 21)  # last torque-saturated mask (0/1)
-        fcount = row(S, 24)
-        last_valid = row(S, 25)
-        goal = vec(gw, 0)
-        wind = vec(gw, 3)
-
-        B = S.shape[1]
-        big = jnp.full((1, B), 1e30, S.dtype)
-        min_dist = big
-        min_alt = big
-        min_clear = big
-        track_sum = jnp.zeros((1, B), S.dtype)
-
-        for j in range(T):
-            sp_pos = vec(spp, 3 * j)
-            sp_vel = vec(spv, 3 * j)
-            sp_acc = vec(spa, 3 * j)
+        def tick(j, carry):
+            pos, vel, omega, Rf, integral, lt_sat, fcount, last_valid, acc = carry
+            min_dist, track_sum, min_alt, min_clear = acc
+            R = [[Rf[3 * i + k] for k in range(3)] for i in range(3)]
+            sp_pos = vec(spp_ref, 3 * j)
+            sp_vel = vec(spv_ref, 3 * j)
+            sp_acc = vec(spa_ref, 3 * j)
 
             # ---- geometric controller (geometric.py:185-326) ----
             pe = tuple(sp_pos[d] - pos[d] for d in range(3))
@@ -148,7 +134,7 @@ def _tick_kernel(control_cfg, physics_cfg, control_dt: float, T: int,
             f_norm = norm3(f)
             thrust_raw = c.mass * f_norm
             thrust_mag = jnp.clip(thrust_raw, min_thrust, c.max_thrust)
-            thrust_sat = (thrust_raw != thrust_mag).astype(S.dtype)
+            thrust_sat = (thrust_raw != thrust_mag).astype(jnp.float32)
 
             # integral update, clamping anti-windup
             damp_t = 1.0 - 0.9 * thrust_sat  # where(sat, 0.1, 1.0)
@@ -177,7 +163,7 @@ def _tick_kernel(control_cfg, physics_cfg, control_dt: float, T: int,
             # desired thrust direction + tilt limit
             inv_f = 1.0 / jnp.maximum(f_norm, 1e-9)
             b3 = tuple(f[d] * inv_f for d in range(3))
-            tm_ok = (thrust_mag > 1e-6).astype(S.dtype)
+            tm_ok = (thrust_mag > 1e-6).astype(jnp.float32)
             b3 = (
                 b3[0] * tm_ok,
                 b3[1] * tm_ok,
@@ -241,7 +227,7 @@ def _tick_kernel(control_cfg, physics_cfg, control_dt: float, T: int,
                 jnp.clip(tq_raw[d], -max_tq[d], max_tq[d]) for d in range(3)
             )
             lt_sat = tuple(
-                (tq_raw[d] != tq[d]).astype(S.dtype) for d in range(3)
+                (tq_raw[d] != tq[d]).astype(jnp.float32) for d in range(3)
             )
 
             # failsafe accounting (geometric.py:300-313)
@@ -330,21 +316,29 @@ def _tick_kernel(control_cfg, physics_cfg, control_dt: float, T: int,
             min_alt = jnp.minimum(min_alt, pos[2])
             track_sum = track_sum + terr
             for k in range(num_obstacles):
-                ovec = tuple(pos[d] - row(obs, 4 * k + d) for d in range(3))
-                clear = norm3(ovec) - row(obs, 4 * k + 3)
+                ovec = tuple(pos[d] - obs_ref[4 * k + d, :] for d in range(3))
+                clear = norm3(ovec) - obs_ref[4 * k + 3, :]
                 min_clear = jnp.minimum(min_clear, clear)
+            return (
+                pos, vel, omega,
+                tuple(R[i][k] for i in range(3) for k in range(3)),
+                integral, tuple(lt_sat), fcount, last_valid,
+                (min_dist, track_sum, min_alt, min_clear),
+            )
 
         # ---- write back ----
-        zero = jnp.zeros_like(fcount)
+        pos, vel, omega, Rf, integral, lt_sat, fcount, last_valid, acc = (
+            jax.lax.fori_loop(0, T, tick, carry0)
+        )
         rows = (
-            list(pos) + list(vel) + list(omega)
-            + [R[i][j] for i in range(3) for j in range(3)]
+            list(pos) + list(vel) + list(omega) + list(Rf)
             + list(integral) + list(lt_sat) + [fcount, last_valid]
         )
-        rows += [zero] * (_ROWS - len(rows))
-        out_ref[:] = jnp.concatenate(rows, axis=0)
-        acc_rows = [min_dist, track_sum, min_alt, min_clear] + [zero] * 4
-        acc_ref[:] = jnp.concatenate(acc_rows, axis=0)
+        zero = 0.0 * fcount
+        for i in range(_ROWS):
+            out_ref[i, :] = rows[i] if i < len(rows) else zero
+        for i in range(8):
+            acc_ref[i, :] = acc[i] if i < len(acc) else zero
 
     return kernel
 
@@ -366,35 +360,40 @@ def run_tick_block(
     sp_acc: Array,
     goal_wind: Array,  # (8, B): goal rows 0-2, wind rows 3-5
     obstacle_rows: Array | None = None,  # (4K, B): cx,cy,cz,r per sphere
-    block_b: int = 1024,
+    block_b: int = 128,
     interpret: bool = False,
 ) -> tuple[Array, Array]:
     """Execute one fused tick block. Returns (new_state_rows, accum_rows)
     with accum rows 0=min dist, 1=sum track err, 2=min altitude,
     3=min obstacle surface clearance (1e30 when no obstacles given).
-    Inactive obstacle rows must carry r = -1e30."""
+    Inactive obstacle rows must carry r = -1e30. ``block_b`` episodes
+    per program (a power of two); ``interpret=True`` runs the kernel in
+    the Pallas interpreter (CPU tests), otherwise it compiles through
+    Triton."""
     from jax.experimental import pallas as pl
-    from jax.experimental.pallas import tpu as pltpu
+    from jax.experimental.pallas import triton as pl_triton
 
+    if block_b & (block_b - 1):
+        raise ValueError(f"block_b={block_b} must be a power of two")
     B = state_rows.shape[1]
-    block_b = min(block_b, _round_up(max(B, 1), 128))
-    Bp = _round_up(max(B, 1), block_b)
+    block_b = min(block_b, pow2_at_least(B, 16))
+    Bp = -(-B // block_b) * block_b
+    T3 = pow2_at_least(sp_pos.shape[0])
 
-    def pad(x):
-        return jnp.pad(x, ((0, 0), (0, Bp - B)))
+    def pad(x, rows=None):
+        rows = x.shape[0] if rows is None else rows
+        return jnp.pad(x, ((0, rows - x.shape[0]), (0, Bp - B)))
 
-    T3 = sp_pos.shape[0]
-    grid = (Bp // block_b,)
     bspec = lambda rows: pl.BlockSpec(  # noqa: E731
-        (rows, block_b), lambda i: (0, i), memory_space=pltpu.VMEM
+        (rows, block_b), lambda i: (0, i)
     )
     K = 0 if obstacle_rows is None else obstacle_rows.shape[0] // 4
     kernel = _tick_kernel(
         control_cfg, physics_cfg, control_dt, T, substeps, num_obstacles=K
     )
     in_specs = [bspec(_ROWS), bspec(T3), bspec(T3), bspec(T3), bspec(8)]
-    args = [pad(state_rows), pad(sp_pos), pad(sp_vel), pad(sp_acc),
-            pad(goal_wind)]
+    args = [pad(state_rows), pad(sp_pos, T3), pad(sp_vel, T3),
+            pad(sp_acc, T3), pad(goal_wind)]
     if K:
         in_specs.append(bspec(4 * K))
         args.append(pad(obstacle_rows))
@@ -404,10 +403,15 @@ def run_tick_block(
             jax.ShapeDtypeStruct((_ROWS, Bp), state_rows.dtype),
             jax.ShapeDtypeStruct((8, Bp), state_rows.dtype),
         ),
-        grid=grid,
+        grid=(Bp // block_b,),
         in_specs=in_specs,
         out_specs=(bspec(_ROWS), bspec(8)),
+        compiler_params=pl_triton.CompilerParams(
+            num_warps=max(1, block_b // 32), num_stages=1,  # an episode a thread
+        ),
+        backend="triton",
         interpret=interpret,
+        name="closed_loop_ticks",
     )(*args)
     return out[:, :B], acc[:, :B]
 

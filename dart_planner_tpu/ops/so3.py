@@ -25,13 +25,13 @@ _EPS = 1e-6
 def mm(a: Array, b: Array) -> Array:
     """fp32 matmul for rotation chains.
 
-    On TPU, ``a @ b`` on fp32 inputs defaults to ONE bf16 MXU pass
-    (~0.4% relative error). A 400 Hz closed loop multiplies ~2,400
-    rotation increments per episode; at bf16 the attitude estimate
-    disintegrates (measured Monte-Carlo success 0.154 vs 0.603 — see
-    docs/kernel.md "TPU precision postmortem"). Every rotation-matrix
-    product in this package must go through here. The 3x3 shapes are
-    VPU-sized, so HIGHEST costs nothing.
+    On the GPU, ``a @ b`` on fp32 inputs may run in TF32 (about three
+    decimal digits); a 400 Hz closed loop multiplies ~2,400 rotation
+    increments per episode, and at reduced precision the attitude
+    estimate disintegrates (with bf16 products, Monte-Carlo success fell
+    from 0.603 to 0.154). Every rotation-matrix product in this package
+    must go through here. The 3x3 shapes are tiny, so HIGHEST costs
+    nothing.
     """
     return jnp.matmul(a, b, precision=lax.Precision.HIGHEST)
 

@@ -1,10 +1,10 @@
-"""Scenario-batch parallelism: vmap on one chip, shard_map over a mesh.
+"""Scenario-batch parallelism: vmap on one device, shard_map over a mesh.
 
 The reference's only distribution is an edge<->cloud ZMQ split
 (/root/reference/src/dart_planner/communication/, SURVEY.md section 2.7).
-The TPU-native scaling axis is the *scenario batch*: thousands of
-independent MPC solves vmapped per chip and sharded over a
-("hosts", "devices") mesh, with ICI/DCN collectives only for fleet-level
+Here the scaling axis is the *scenario batch*: thousands of
+independent MPC solves batched per device and sharded over a
+("hosts", "devices") mesh, with collectives only for fleet-level
 reductions (success rates, cost statistics), never on the per-scenario
 solve path.
 """

@@ -1,11 +1,12 @@
 """Multi-process (multi-host) fleet execution over ``jax.distributed``.
 
 The reference scales across machines by hand-rolled ZMQ process pairs
-(/root/reference/src/dart_planner/edge/main_improved.py:96-147). The
-TPU-native model: every host runs THE SAME program; ``jax.distributed``
+(/root/reference/src/dart_planner/edge/main_improved.py:96-147). Here
+every host runs THE SAME program; ``jax.distributed``
 stitches their local devices into one global mesh, ``solve_fleet``'s
 ``shard_map`` runs communication-free per-scenario solves, and only the
-psum'd :class:`~dart_planner_tpu.parallel.scenario.FleetStats` cross DCN.
+psum'd :class:`~dart_planner_tpu.parallel.scenario.FleetStats` cross
+between hosts.
 
 This module is the thin host-topology layer:
 
@@ -47,8 +48,10 @@ def initialize(
 ) -> None:
     """Join the ``jax.distributed`` cluster (idempotent).
 
-    With no arguments, reads the standard env vars / cluster autodetect
-    (TPU pods). Explicit arguments are for the CPU test harness.
+    With no arguments, relies on JAX's cluster autodetection; where
+    there is none (a plain GPU host), pass ``coordinator_address``,
+    ``num_processes`` and ``process_id`` explicitly, as the CPU test
+    harness does.
     """
     global _initialized
     if _initialized:
@@ -73,9 +76,9 @@ def global_fleet_mesh() -> Mesh:
 
     ``jax.devices()`` orders devices by process; reshaping to
     (process_count, local) puts each process's devices on one "hosts"
-    row, so the "devices" axis is intra-host (ICI on TPU) and the
-    "hosts" axis is inter-host (DCN) — collectives ride the right
-    fabric by construction.
+    row, so the "devices" axis is intra-host (NVLink between GPUs) and
+    the "hosts" axis is inter-host (the network) — collectives ride the
+    right fabric by construction.
     """
     procs = jax.process_count()
     devs = jax.devices()

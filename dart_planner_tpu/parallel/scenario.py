@@ -2,14 +2,16 @@
 
 Replaces the reference's process-level distribution (cloud plans / edge
 controls over ZMQ REQ/REP, /root/reference/src/dart_planner/edge/
-main_improved.py:96-147) with the TPU-native scaling model:
+main_improved.py:96-147) with a scenario-batch scaling model:
 
-- one chip: ``vmap``ped batch inside a single XLA executable;
-- one host: batch sharded over the local devices of a 1D/2D ``Mesh``;
-- many hosts: same code — the mesh gains a "hosts" axis over DCN via
+- one device: batched solve inside a single XLA executable;
+- one host: batch sharded over the local devices of a 1D/2D ``Mesh``
+  (GPUs of one host are joined all to all, so the mesh follows the
+  algorithm only);
+- many hosts: same code — the mesh gains a "hosts" axis via
   ``jax.distributed``; scenarios stay independent so nothing crosses the
   interconnect during the solve, and only fleet statistics are reduced
-  with ``psum`` (ICI within a slice, DCN across hosts).
+  with ``psum``.
 
 Everything is a pure function of fixed-shape inputs; the per-scenario
 solver is :func:`dart_planner_tpu.planning.se3_mpc.solve_se3_mpc`.
@@ -51,7 +53,7 @@ def make_fleet_mesh(
 
     With one process, "hosts" is 1 (or ``hosts`` if forcing a virtual
     split, e.g. 8 CPU devices as 2 hosts x 4 devices for scaling tests).
-    Under ``jax.distributed`` the host axis maps to real processes/DCN.
+    Under ``jax.distributed`` the host axis maps to real processes.
     """
     devs = list(devices if devices is not None else jax.devices())
     n = len(devs)
@@ -93,8 +95,7 @@ def solve_fleet(
     The solve itself is embarrassingly parallel (no communication); the
     returned :class:`FleetStats` are psum-reduced across the whole mesh so
     every host sees global numbers without a host-side gather. ``method``
-    picks the per-shard solver (``"fused"`` Pallas kernel on TPU, ``"xla"``
-    elsewhere under ``"auto"`` — see :func:`se3_mpc.solve`).
+    picks the per-shard solver (see :func:`se3_mpc.resolve_method`).
 
     ``with_stats=False`` returns ``(result, None)`` and emits NO
     collectives at all: back-to-back fleet calls (warm-started MPC
@@ -137,9 +138,11 @@ def solve_fleet(
     res, stats = shard_map(
         local_solve,
         mesh=mesh,
-        # pallas_call (the fused solver) has no varying-mesh-axes
-        # annotation for its outputs; skip the vma check — correctness
-        # is covered by tests/test_scaling.py mesh-invariance
+        # pallas_call (the fused solver) carries no varying-mesh-axes
+        # annotation on its outputs, and its interpret mode (the CPU
+        # tests) fails the check even with one; correctness is covered
+        # by the mesh-invariance tests (tests/test_scaling.py) and
+        # chip_smoke.py --four-cards
         check_vma=False,
         in_specs=(
             # spec tree must mirror the actual Problem structure:

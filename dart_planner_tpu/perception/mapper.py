@@ -3,7 +3,7 @@
 Re-design of the reference ``ExplicitGeometricMapper``
 (/root/reference/src/dart_planner/perception/explicit_geometric_mapper.py,
 "EGM"): its sparse ``Dict[(i,j,k) -> VoxelData]`` with Python DDA ray
-tracing (EGM:250-309) cannot vmap or live on device, so the TPU rebuild
+tracing (EGM:250-309) cannot vmap or live on device, so this rebuild
 uses a fixed-extent dense log-odds grid:
 
 - Bayesian update (EGM:311-336, p_hit=0.7 / p_miss=0.4, clamp [0.01,0.99])
@@ -278,7 +278,7 @@ def extract_obstacles(
 ) -> tuple[Array, Array]:
     """Occupied voxels as padded sphere obstacles (K, 4) + mask.
 
-    TPU-native equivalent of ``_refresh_se3_obstacles_from_mapper``
+    On-device equivalent of ``_refresh_se3_obstacles_from_mapper``
     (cloud/main_improved_threelayer.py:381-398): local grid -> threshold
     0.6 -> K best voxels, each a sphere of radius ``resolution`` (the
     reference uses 0.6*resolution per voxel; we keep a full voxel radius
@@ -388,7 +388,7 @@ def simulate_lidar_scan(
     )
     oc = position - obstacles[:, :3]  # (K, 3)
     r2 = obstacles[:, 3] ** 2
-    b = jnp.einsum(  # (R, K); fp32 — bf16-default on TPU shifts hit cells
+    b = jnp.einsum(  # (R, K); fp32 — a TF32/bf16 product shifts hit cells
         "rd,kd->rk", dirs, oc, precision=jax.lax.Precision.HIGHEST
     )
     c = jnp.sum(oc * oc, axis=-1)[None, :] - r2[None, :]

@@ -1,4 +1,4 @@
-"""SE(3) model-predictive trajectory optimizer, TPU-native.
+"""SE(3) model-predictive trajectory optimizer for batched accelerator solves.
 
 Re-design of the reference ``SE3MPCPlanner``
 (/root/reference/src/dart_planner/planning/se3_mpc_planner.py): same cost
@@ -94,7 +94,7 @@ class SE3MPCConfig(NamedTuple):
     # Steihaug CG truncation + clamped Jacobi diagonal
     # (costs.penalty_blocks docstring). Full curvature from a COLD start
     # can leave the right basin (measured max cost-vs-ground-truth 17.8x,
-    # scripts/diag_fixes.py); staged after a GN warmup it keeps GN's
+    # on the bench batch); staged after a GN warmup it keeps GN's
     # basin and cuts p95 cost excess ~10x at equal iteration budget.
     newton_full_curvature: bool = True
     gn_warmup_iterations: int = 6
@@ -120,7 +120,7 @@ class SE3MPCConfig(NamedTuple):
     tail_capacity: float = 0.25
     # Trimmed line-search grid for the refine rounds: near convergence
     # the tiny-alpha candidates almost never win, and each candidate is
-    # a full cost pass (the kernel's VPU hog). Measured on the bench
+    # a full cost pass (the largest share of a round). Measured on the bench
     # batch: conv 0.966 -> 0.979 at identical max excess (fewer
     # micro-improvements also means the ftol stall triggers honestly
     # sooner).
@@ -134,7 +134,7 @@ class SE3MPCConfig(NamedTuple):
     # (it is declared converged — progress genuinely stopped, in the
     # wrong basin), so no amount of polishing, and no unconverged-first
     # selection, can touch it. Anatomy of the one known instance
-    # (scripts/diag_stuck.py, TPU XLA path, excess 1.084): 98% of
+    # (scripts/diag_stuck.py, XLA path, excess 1.084): 98% of
     # 1-2 N jittered QP starts reach the true basin under the staged
     # shipping schedule — but 0% of unjittered starts, and large noise
     # (4-8 N) degrades to ~70%. Hence the defaults: noise 2 N, the
@@ -193,8 +193,8 @@ class SE3MPCConfig(NamedTuple):
     # docstring): keep ||u_xy|| <= tan(max_tilt) u_z and ||u|| <= max_thrust.
     # The reference's per-axis box admits ~85deg-tilt / sqrt(3) u_max
     # corners that a tilt-limited vehicle cannot track; plans built on them
-    # lose the closed loop (measured on TPU, 2048 windy episodes: MC
-    # success 0.609 -> 1.000 when enabled; docs/kernel.md postmortem).
+    # lose the closed loop (2048 windy episodes: MC success 0.609 ->
+    # 1.000 when enabled).
     tilt_weight: float = 10.0
     thrust_norm_weight: float = 10.0
 
@@ -454,7 +454,7 @@ def solve_se3_mpc(
         hinge's negative tangential curvature — converges the basin fast,
         but from a cold start can jump to a worse one, measured max
         cost-vs-ground-truth 17.8x on the bench batch; staged GN->full it
-        never leaves the GN basin, scripts/diag_fixes.py)."""
+        never leaves the GN basin)."""
         return functools.partial(_newton_round, full_curv)
 
     def _newton_round(full_curv, _, carry):
@@ -470,7 +470,7 @@ def solve_se3_mpc(
         # subspace. The (3N, 3N) Hessian is never formed: the quadratic
         # part is a per-axis (N, N) matmul and the penalty GN part is a
         # pullback through S_p / S_v of per-step 3x3 blocks — all small
-        # MXU einsums, so cost scales with batch, not n^3.
+        # batched einsums, so cost scales with batch, not n^3.
         if use_penalties:
             Hp, Hv, Hu = costs.penalty_blocks(
                 u, prob, w, dt, mass, gvec,
@@ -528,7 +528,7 @@ def solve_se3_mpc(
             # (a Rayleigh-quotient floor) — because an absolute epsilon
             # lets rounding-level positive pap through and alpha = rz/pap
             # then explodes the direction, wasting the whole round on a
-            # rejected line search (observed on TPU with bf16 matvecs).
+            # rejected line search (observed with bf16 matvecs).
             pp = jnp.sum(p * p, axis=(-1, -2), keepdims=True)
             alive = alive & (pap > 1e-8 * pp)
             ok = alive.astype(d.dtype)
@@ -692,6 +692,27 @@ def _finalize(
     )
 
 
+def resolve_method(method: str) -> str:
+    """Map a solver ``method`` to the path that runs.
+
+    ``"auto"`` takes the compiled fused kernel where there is one (the
+    GPU) and the XLA path elsewhere; ``"fused"`` off the GPU raises
+    rather than falling back; ``"interpret"`` runs the fused kernels in
+    the Pallas interpreter (CPU tests of the kernel arithmetic)."""
+    backend = jax.default_backend()
+    if method == "auto":
+        return "fused" if backend == "gpu" else "xla"
+    if method == "fused" and backend != "gpu":
+        raise ValueError(
+            f"method='fused' needs a GPU (backend is {backend!r}): the "
+            "kernel compiles through Triton. Use 'xla', or 'interpret' to "
+            "run it in the Pallas interpreter."
+        )
+    if method not in ("xla", "fused", "interpret"):
+        raise ValueError(f"unknown solver method {method!r}")
+    return method
+
+
 def _solve_once(
     config: SE3MPCConfig,
     prob: costs.Problem,
@@ -701,7 +722,7 @@ def _solve_once(
     block_b: int,
     with_grad: bool = True,
 ) -> SolveResult:
-    """One fixed-budget solve on the selected path (no tail refinement)."""
+    """One fixed-budget solve on a resolved path (no tail refinement)."""
     if method == "xla":
         return solve_se3_mpc(
             config, prob, u_init, use_obstacles, with_grad=with_grad
@@ -716,7 +737,7 @@ def _solve_once(
         u_init,
         use_obstacles=use_obstacles,
         block_b=block_b,
-        interpret=jax.default_backend() != "tpu",
+        interpret=method == "interpret",
     )
     return _finalize(
         config, prob, u, min_improvement, with_grad=with_grad,
@@ -793,8 +814,7 @@ def _compact_resolve(
     phases."""
     B = res_f.cost.shape[0]
     # invert the permutation for the first C slots (one small int32
-    # scatter; the value merges below are all GATHERS — TPU scatters of
-    # the big state arrays cost ~0.1 ms each and dominated the glue)
+    # scatter; the value merges below are all gathers)
     idx = jnp.zeros((B,), slot.dtype).at[slot].set(
         jnp.arange(B, dtype=slot.dtype)
     )[:C]
@@ -802,8 +822,8 @@ def _compact_resolve(
     take = lambda x: None if x is None else x[idx]  # noqa: E731
     prob_t = costs.Problem(*[take(x) for x in prob_f])
     ref = _solve_once(
-        cfg_c, prob_t, u_start_f[idx], use_obstacles, method,
-        min(block_b, 1024), with_grad=False,
+        cfg_c, prob_t, u_start_f[idx], use_obstacles, method, block_b,
+        with_grad=False,
     )
     ok = ref.cost <= res_f.cost[idx]
 
@@ -873,9 +893,8 @@ def _tail_refine(
         restart_iterations=0,
         line_search_alphas=config.tail_line_search_alphas,
     )
-    # unconverged first via a stable PARTITION (two prefix sums) — a
-    # full argsort costs ~0.1 ms of bitonic passes on TPU for 4096
-    # lanes, pure glue on the hot path
+    # unconverged first via a stable PARTITION (two prefix sums), which
+    # needs no sort
     unconv = (~res_f.converged).astype(jnp.int32)
     rank_u = jnp.cumsum(unconv) - 1
     n_unconv = rank_u[-1] + 1
@@ -899,7 +918,7 @@ def _perturbed_restart(
     """Optional phase 3: basin escape for still-stuck scenarios.
 
     The restart cohort is ranked by SUSPICION, not convergence: a
-    basin-stuck scenario ftol-STALLS (measured on the TPU XLA path:
+    basin-stuck scenario ftol-STALLS (measured on the XLA path:
     the one scenario at cost excess 1.08 is declared converged — its
     progress genuinely stalled, in the wrong basin), so
     unconverged-first selection can never find it. The rank signal is
@@ -960,15 +979,16 @@ def solve(
     u_init: Optional[Array] = None,
     use_obstacles: bool = True,
     method: str = "auto",
-    block_b: int = 256,
+    block_b: int = 16,
 ) -> SolveResult:
-    """Solve dispatcher: ``"fused"`` = single fused Pallas kernel (TPU),
-    ``"xla"`` = pure-XLA path, ``"auto"`` = fused on TPU, XLA elsewhere.
-    Both paths run the identical algorithm and agree to float tolerance.
-    With ``config.tail_iterations`` > 0, a second compacted pass refines
-    the unconverged tail (see :func:`_tail_refine`)."""
-    if method == "auto":
-        method = "fused" if jax.default_backend() == "tpu" else "xla"
+    """Solve dispatcher: ``"fused"`` = the single fused Pallas kernel
+    (GPU, compiled through Triton; ``block_b`` scenarios per program),
+    ``"xla"`` = pure-XLA path, ``"auto"`` and ``"interpret"`` as in
+    :func:`resolve_method`. Both paths run the identical algorithm and
+    agree to float tolerance. With ``config.tail_iterations`` > 0, a
+    second compacted pass refines the unconverged tail (see
+    :func:`_tail_refine`)."""
+    method = resolve_method(method)
     if not use_obstacles:
         prob = _strip_obstacles(prob)
     res = _solve_once(config, prob, u_init, use_obstacles, method, block_b)

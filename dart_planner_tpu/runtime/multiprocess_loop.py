@@ -2,7 +2,10 @@
 
 Port of the reference ``common/multiprocess_control_loop.py``
 (``ProcessControlLoop``, :13-55): runs a control function in a separate
-process at a fixed rate, exchanging state/commands over pipes. On this
+process at a fixed rate, exchanging state/commands over pipes. The child
+is started with the ``spawn`` method: a forked child would inherit the
+parent's JAX runtime (and any GPU context it holds) in an unusable state.
+So ``control_fn`` must be picklable (a module-level function). On this
 stack it exists mainly for CPU-bound auxiliary work (logging, telemetry
 encoding); the real-time path belongs to the C++ executor
 (:mod:`dart_planner_tpu.runtime.rt_executor`).
@@ -15,7 +18,11 @@ import time
 from typing import Any, Callable, Optional
 
 
+_CTX = mp.get_context("spawn")
+
+
 def _worker(fn, frequency_hz: float, conn, stop_event) -> None:
+    conn.send({"__ready__": True})
     period = 1.0 / frequency_hz
     state: Any = None
     iterations = 0
@@ -45,19 +52,24 @@ class ProcessControlLoop:
     def __init__(self, control_fn: Callable[[Any], Any], frequency_hz: float = 100.0):
         self.control_fn = control_fn
         self.frequency_hz = frequency_hz
-        self._parent_conn, self._child_conn = mp.Pipe()
-        self._stop = mp.Event()
+        self._parent_conn, self._child_conn = _CTX.Pipe()
+        self._stop = _CTX.Event()
         self._proc: Optional[mp.Process] = None
         self.last_output: Any = None
         self.error: Optional[str] = None
 
-    def start(self) -> None:
-        self._proc = mp.Process(
+    def start(self, timeout: float = 60.0) -> None:
+        """Start the child and return once its loop is running."""
+        self._proc = _CTX.Process(
             target=_worker,
             args=(self.control_fn, self.frequency_hz, self._child_conn, self._stop),
             daemon=True,
         )
         self._proc.start()
+        if not self._parent_conn.poll(timeout):
+            self.stop()
+            raise RuntimeError(f"control process not ready after {timeout} s")
+        self._parent_conn.recv()  # the ready message
 
     def stop(self, timeout: float = 2.0) -> None:
         self._stop.set()

@@ -5,7 +5,7 @@ JWT-style RS256 tokens with roles/permissions (auth.py), a token-bucket /
 lockout rate limiter (rate_limiter.py), input validation helpers
 (validation.py), and file-integrity verification (file_verification.py).
 Implemented on the stdlib + ``cryptography`` (PyJWT is not in this
-image); peripheral to the TPU compute path by design.
+image); peripheral to the accelerator compute path by design.
 """
 
 from dart_planner_tpu.security.auth import (

@@ -105,7 +105,7 @@ class EpisodeResult(NamedTuple):
     success: Array  # (...,) bool
 
 
-@functools.partial(jax.jit, static_argnames=("config", "method"))
+@functools.partial(jax.jit, static_argnames=("config", "method", "tick_kernel"))
 def simulate_episode(
     config: ClosedLoopConfig,
     key: Array,
@@ -117,12 +117,16 @@ def simulate_episode(
     true_obstacles: Optional[Array] = None,
     true_obstacle_mask: Optional[Array] = None,
     corridor_observed: Optional[Array] = None,
+    tick_kernel: bool = True,
 ) -> EpisodeResult:
     """Closed-loop episode(s): natively batched over any leading dims of
     ``state0``/``goal`` (also composes with vmap when ``method="xla"``).
-    ``method`` picks the MPC solver per replan — batched calls on TPU can
-    use the fused Pallas kernel (``"auto"``/``"fused"``), which a vmapped
-    episode cannot (pallas_call has no batching rule).
+    ``method`` picks the MPC solver per replan (see
+    :func:`se3_mpc.resolve_method`); ``"fused"`` (``"auto"`` on the GPU)
+    and ``"interpret"`` also run each 400 Hz tick block as one fused
+    Pallas kernel (``ops/pallas_rollout.py``) instead of a scan;
+    ``tick_kernel=False`` keeps the scan with those solvers, so the two
+    tick paths can be compared under one solver.
 
     ``obstacles`` is what the PLANNER sees (e.g. the mapper's perceived
     set; safety margin added here as ``make_problem`` does).
@@ -141,12 +145,12 @@ def simulate_episode(
     mpc = config.mpc
     dtype = state0.position.dtype
     batch_shape = state0.position.shape[:-1]
-    if method == "auto":
-        method = "fused" if jax.default_backend() == "tpu" else "xla"
+    method = se3_mpc.resolve_method(method)
     # the fused tick-block kernel handles the standard sim configuration
-    # over a single batch axis; anything else falls back to the scan
+    # over a single batch axis; anything else runs the scan
     use_tick_kernel = (
-        method == "fused"
+        tick_kernel
+        and method in ("fused", "interpret")
         and config.control.anti_windup_method == "clamping"
         and config.control.yaw_convention == "lee"
         and len(batch_shape) == 1
@@ -319,106 +323,11 @@ def simulate_episode(
             mpc, prob, se3_mpc.shift_warm_start(mpc, u_warm), method=method
         )
 
-        if use_tick_kernel:
-            # entire 400 Hz tick block as one fused Pallas kernel
-            # (ops/pallas_rollout.py) instead of an n_sub-step scan
-            from dart_planner_tpu.ops import pallas_rollout
-
-            S = pallas_rollout.pack_state(rb, ctrl_state)
-            spp, spv, spa = pallas_rollout.setpoints_from_plan(
-                res.positions, res.velocities, res.accelerations,
-                n_sub, config.control_dt, mpc.dt,
-            )
-            B = S.shape[1]
-            gw = jnp.concatenate(
-                [
-                    jnp.broadcast_to(goal, (B, 3)).T,
-                    jnp.broadcast_to(wind, (B, 3)).T,
-                    jnp.zeros((2, B), dtype),
-                ],
-                axis=0,
-            )
-            obs_rows = None
-            if track_collisions:
-                tobs = jnp.broadcast_to(
-                    true_obstacles, (B,) + true_obstacles.shape[-2:]
-                )
-                tmask = jnp.broadcast_to(
-                    true_obstacle_mask, tobs.shape[:-1]
-                )
-                obs_rows = pallas_rollout.pack_obstacles(tobs, tmask).astype(
-                    S.dtype
-                )
-            S2, acc = pallas_rollout.run_tick_block(
-                config.control, config.physics, config.control_dt,
-                n_sub, config.physics_substeps,
-                S, spp, spv, spa, gw, obs_rows,
-                interpret=jax.default_backend() != "tpu",
-            )
-            rb2, cs2 = pallas_rollout.unpack_state(S2, rb, ctrl_state)
-            t2 = t + n_sub * config.control_dt
-            return (rb2, cs2, res.thrusts, t2), (
-                acc[0], acc[1], acc[2], acc[3],
-            )
-
-        def control_tick(carry2, sub_idx):
-            rb2, cs2, t2 = carry2
-            tau = (sub_idx.astype(dtype) + 1.0) * config.control_dt
-            # linear interpolation of the plan at time tau
-            x = jnp.clip(tau / mpc.dt, 0.0, mpc.prediction_horizon - 1.001)
-            i0 = jnp.floor(x).astype(jnp.int32)
-            frac = x - i0.astype(dtype)
-
-            def lerp(arr):
-                # index the horizon axis (second-to-last): works unbatched
-                # and with leading episode dims alike
-                lo = arr[..., i0, :]
-                hi = arr[..., i0 + 1, :]
-                return lo + frac * (hi - lo)
-
-            sp = geometric.ControlSetpoint(
-                position=lerp(res.positions),
-                velocity=lerp(res.velocities),
-                acceleration=lerp(res.accelerations),
-                yaw=jnp.zeros((), dtype),
-                yaw_rate=jnp.zeros((), dtype),
-            )
-            ds = rb2.to_drone_state(t2)
-            cmd, cs3 = geometric.compute_control(
-                config.control, cs2, ds, sp, config.control_dt
-            )
-            # sub-step the plant: the attitude loop is fast (~21 rad/s at
-            # hardware.yaml inertia); one Euler step per control tick is
-            # numerically unstable
-            h = config.control_dt / config.physics_substeps
-            rb3 = rb2
-            for _ in range(config.physics_substeps):
-                rb3 = phys.rigid_body_step(config.physics, rb3, cmd, h, wind)
-            dist = jnp.linalg.norm(rb3.position - goal, axis=-1)
-            track_err = jnp.sum((rb3.position - sp.position) ** 2, axis=-1)
-            if track_collisions:
-                diff = rb3.position[..., None, :] - true_obstacles[..., :3]
-                clear_k = jnp.linalg.norm(diff, axis=-1) - true_obstacles[
-                    ..., 3
-                ]
-                clear = jnp.min(
-                    jnp.where(true_obstacle_mask, clear_k, jnp.inf), axis=-1
-                )
-            else:
-                clear = jnp.full(dist.shape, 1e30, dtype)
-            return (rb3, cs3, t2 + config.control_dt), (
-                dist, track_err, rb3.position[..., 2], clear,
-            )
-
-        (rb, ctrl_state, t), (dists, terrs, alts, clears) = jax.lax.scan(
-            control_tick, (rb, ctrl_state, t), jnp.arange(n_sub)
+        rb, ctrl_state, t, metrics = tick_block(
+            config, use_tick_kernel, method == "interpret", rb, ctrl_state,
+            t, res, goal, wind, true_obstacles, true_obstacle_mask,
         )
-        return (rb, ctrl_state, res.thrusts, t), (
-            jnp.min(dists, axis=0),
-            jnp.sum(terrs, axis=0),
-            jnp.min(alts, axis=0),
-            jnp.min(clears, axis=0),
-        )
+        return (rb, ctrl_state, res.thrusts, t), metrics
 
     init = (rb0, ctrl0, u0, state0.timestamp.astype(dtype))
     (rb, _, _, _), (min_dists, terr_sums, min_alts, min_clears) = (
@@ -441,6 +350,123 @@ def simulate_episode(
         min_obstacle_clearance=min_clear,
         crashed=crashed,
         success=(final_dist < config.goal_tolerance) & ~crashed,
+    )
+
+
+def tick_block(
+    config: ClosedLoopConfig,
+    use_kernel: bool,
+    interpret: bool,
+    rb: phys.RigidBodyState,
+    ctrl_state: geometric.ControllerState,
+    t: Array,
+    plan: se3_mpc.SolveResult,
+    goal: Array,
+    wind: Array,
+    true_obstacles: Optional[Array] = None,
+    true_obstacle_mask: Optional[Array] = None,
+):
+    """One replan block: ``config.substeps_per_plan`` 400 Hz ticks of the
+    geometric controller tracking ``plan`` (linearly interpolated) and
+    the rigid-body plant. ``use_kernel`` runs the block as one fused
+    Pallas kernel (``ops/pallas_rollout.py``; ``interpret`` for the CPU
+    tests), otherwise as a ``lax.scan`` over ticks. Returns ``(rb,
+    ctrl_state, t, (min goal distance, summed squared tracking error,
+    min altitude, min true-obstacle surface clearance))``, the clearance
+    1e30 without ``true_obstacles``."""
+    mpc = config.mpc
+    dtype = rb.position.dtype
+    n_sub = config.substeps_per_plan
+    track_collisions = true_obstacles is not None
+    if use_kernel:
+        from dart_planner_tpu.ops import pallas_rollout
+
+        S = pallas_rollout.pack_state(rb, ctrl_state)
+        spp, spv, spa = pallas_rollout.setpoints_from_plan(
+            plan.positions, plan.velocities, plan.accelerations,
+            n_sub, config.control_dt, mpc.dt,
+        )
+        B = S.shape[1]
+        gw = jnp.concatenate(
+            [
+                jnp.broadcast_to(goal, (B, 3)).T,
+                jnp.broadcast_to(wind, (B, 3)).T,
+                jnp.zeros((2, B), dtype),
+            ],
+            axis=0,
+        )
+        obs_rows = None
+        if track_collisions:
+            tobs = jnp.broadcast_to(
+                true_obstacles, (B,) + true_obstacles.shape[-2:]
+            )
+            tmask = jnp.broadcast_to(true_obstacle_mask, tobs.shape[:-1])
+            obs_rows = pallas_rollout.pack_obstacles(tobs, tmask).astype(dtype)
+        S2, acc = pallas_rollout.run_tick_block(
+            config.control, config.physics, config.control_dt,
+            n_sub, config.physics_substeps,
+            S, spp, spv, spa, gw, obs_rows, interpret=interpret,
+        )
+        rb2, cs2 = pallas_rollout.unpack_state(S2, rb, ctrl_state)
+        return rb2, cs2, t + n_sub * config.control_dt, (
+            acc[0], acc[1], acc[2], acc[3],
+        )
+
+    def control_tick(carry2, sub_idx):
+        rb2, cs2, t2 = carry2
+        tau = (sub_idx.astype(dtype) + 1.0) * config.control_dt
+        # linear interpolation of the plan at time tau
+        x = jnp.clip(tau / mpc.dt, 0.0, mpc.prediction_horizon - 1.001)
+        i0 = jnp.floor(x).astype(jnp.int32)
+        frac = x - i0.astype(dtype)
+
+        def lerp(arr):
+            # index the horizon axis (second-to-last): works unbatched
+            # and with leading episode dims alike
+            lo = arr[..., i0, :]
+            hi = arr[..., i0 + 1, :]
+            return lo + frac * (hi - lo)
+
+        sp = geometric.ControlSetpoint(
+            position=lerp(plan.positions),
+            velocity=lerp(plan.velocities),
+            acceleration=lerp(plan.accelerations),
+            yaw=jnp.zeros((), dtype),
+            yaw_rate=jnp.zeros((), dtype),
+        )
+        ds = rb2.to_drone_state(t2)
+        cmd, cs3 = geometric.compute_control(
+            config.control, cs2, ds, sp, config.control_dt
+        )
+        # sub-step the plant: the attitude loop is fast (~21 rad/s at
+        # hardware.yaml inertia); one Euler step per control tick is
+        # numerically unstable
+        h = config.control_dt / config.physics_substeps
+        rb3 = rb2
+        for _ in range(config.physics_substeps):
+            rb3 = phys.rigid_body_step(config.physics, rb3, cmd, h, wind)
+        dist = jnp.linalg.norm(rb3.position - goal, axis=-1)
+        track_err = jnp.sum((rb3.position - sp.position) ** 2, axis=-1)
+        if track_collisions:
+            diff = rb3.position[..., None, :] - true_obstacles[..., :3]
+            clear_k = jnp.linalg.norm(diff, axis=-1) - true_obstacles[..., 3]
+            clear = jnp.min(
+                jnp.where(true_obstacle_mask, clear_k, jnp.inf), axis=-1
+            )
+        else:
+            clear = jnp.full(dist.shape, 1e30, dtype)
+        return (rb3, cs3, t2 + config.control_dt), (
+            dist, track_err, rb3.position[..., 2], clear,
+        )
+
+    (rb, ctrl_state, t), (dists, terrs, alts, clears) = jax.lax.scan(
+        control_tick, (rb, ctrl_state, t), jnp.arange(n_sub)
+    )
+    return rb, ctrl_state, t, (
+        jnp.min(dists, axis=0),
+        jnp.sum(terrs, axis=0),
+        jnp.min(alts, axis=0),
+        jnp.min(clears, axis=0),
     )
 
 
@@ -498,7 +524,7 @@ def monte_carlo(
     """Randomized fleet as ONE natively-batched episode call (reference
     test_monte_carlo_sim.py: 20 seeded runs, >=80%% goal-reach; here the
     whole fleet is one executable and scales to thousands of episodes per
-    chip, using the fused Pallas solver on TPU)."""
+    device)."""
     ep_key, states, goals = sample_fleet(
         key, num_episodes, start_center, goal_center, start_spread,
         goal_spread,

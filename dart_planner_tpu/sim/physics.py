@@ -152,7 +152,7 @@ def rigid_body_step(
     gyro = jnp.cross(state.angular_velocity, inertia * state.angular_velocity)
     ang_acc = (torque - gyro) / inertia
     omega = state.angular_velocity + ang_acc * dt
-    # so3.mm: fp32 product — the bf16 default-precision matmul on TPU
-    # destroys the attitude over a 2,400-tick episode (docs/kernel.md)
+    # so3.mm: fp32 product — a reduced-precision (TF32/bf16) matmul
+    # destroys the attitude over a 2,400-tick episode
     R = so3.mm(state.rotation, so3.exp_so3(omega * dt))
     return RigidBodyState(position=pos, velocity=vel, rotation=R, angular_velocity=omega)

@@ -5,8 +5,11 @@ The five canonical configurations the judge's baseline names:
 1. single-drone hover-to-waypoint solve at N=20  -> :func:`hover_to_waypoint`
 2. obstacle-avoidance with mapper collision costs -> :func:`mapper_navigation`
 3. aggressive figure-8 tracking at 50 Hz replan   -> :func:`figure8_tracking`
-4. 4096-scenario vmapped Monte-Carlo batch        -> sim.monte_carlo
-5. pod-scale sharded fleet                        -> parallel.solve_fleet
+4. closed-loop Monte-Carlo fleet                 -> :func:`bench_monte_carlo`
+5. multi-device sharded fleet                     -> parallel.solve_fleet
+
+plus the randomized obstacle batches the bench solves
+(:func:`random_obstacle_problem`).
 """
 
 from __future__ import annotations
@@ -189,4 +192,70 @@ def figure8_tracking(
         max_error=jnp.max(errs),
         positions=positions,
         references=references,
+    )
+
+
+class MonteCarloSetup(NamedTuple):
+    """Inputs of one closed-loop Monte-Carlo fleet call (see
+    :func:`bench_monte_carlo`)."""
+
+    n: int
+    args: tuple  # positional arguments of closed_loop.simulate_episode
+    kwargs: dict  # keyword arguments except ``method``
+
+
+def bench_monte_carlo(n: int = 2048, seed: int = 0) -> MonteCarloSetup:
+    """BASELINE config 4 as the bench and the chip smoke test run it: 6 s
+    episodes from randomized starts to randomized goals, wind (mean 1.0,
+    std 0.5 m/s^2) and sensor noise (0.02), per-episode obstacle worlds
+    perceived through the mapper, in-flight proximity sensing within 3 m
+    and a 2 m/s speed cap near unobserved corridor space. World sampling
+    and perception are set-up; ``simulate_episode`` is the measured
+    call."""
+    from dart_planner_tpu.sim import closed_loop, worlds
+
+    cfg = closed_loop.ClosedLoopConfig(
+        wind_mean=1.0, wind_std=0.5, sensor_noise_std=0.02,
+        sense_radius=3.0, unknown_speed_cap=2.0,
+    )
+    wc = worlds.WorldConfig()
+    k_fleet, k_world = jax.random.split(jax.random.PRNGKey(seed))
+    ep_key, states, goals = closed_loop.sample_fleet(
+        k_fleet, n, jnp.asarray([0.0, 0.0, 3.0]), jnp.asarray([6.0, 3.0, 4.0])
+    )
+    tobs, tmask = worlds.sample_worlds(wc, k_world, n, states.position, goals)
+    pobs, pmask, coverage = worlds.perceive_worlds(
+        wc, tobs, tmask, states.position, goals,
+        max_obstacles=cfg.mpc.max_obstacles,
+        corridor_samples=wc.corridor_samples,
+    )
+    return MonteCarloSetup(
+        n=n,
+        args=(cfg, ep_key, states, goals),
+        kwargs=dict(
+            obstacles=pobs, obstacle_mask=pmask, true_obstacles=tobs,
+            true_obstacle_mask=tmask, corridor_observed=coverage,
+        ),
+    )
+
+
+def random_obstacle_problem(
+    config: se3_mpc.SE3MPCConfig, batch: int, rng: np.random.Generator,
+    with_obstacles: bool = True,
+) -> costs.Problem:
+    """The bench's randomized solve batch: starts around (0, 0, 5) (std
+    2 m), velocities std 1 m/s, goals around (0, 0, 5) (std 5 m) and four
+    spheres per scenario (centres std 4 m, radii 0.3-1.2 m, plus the
+    config's safety margin). Draws from ``rng`` in a fixed order, so a
+    seeded generator gives the same batch everywhere."""
+    obs = np.concatenate(
+        [rng.normal(0, 4, (batch, 4, 3)), rng.uniform(0.3, 1.2, (batch, 4, 1))],
+        axis=-1,
+    ).astype(np.float32)
+    return se3_mpc.make_problem(
+        rng.normal(0, 2, (batch, 3)).astype(np.float32) + [0, 0, 5],
+        rng.normal(0, 1, (batch, 3)).astype(np.float32),
+        rng.normal(0, 5, (batch, 3)).astype(np.float32) + [0, 0, 5],
+        obstacles=obs if with_obstacles else None,
+        config=config,
     )

@@ -1,9 +1,9 @@
-"""Advanced (TPU-native): shard a scenario fleet over a device mesh.
+"""Advanced: shard a scenario fleet over a device mesh.
 
 No reference counterpart. Runs a Monte-Carlo fleet across every visible
 device via a ("hosts", "devices") mesh: scenarios shard over the mesh,
 the solve is communication-free, and fleet statistics psum-reduce.
-Works on real TPUs or a virtual CPU mesh:
+Works on the GPUs of one host or a virtual CPU mesh:
 
     JAX_PLATFORMS=cpu XLA_FLAGS=--xla_force_host_platform_device_count=8 \
         python examples/advanced/fleet_sharding.py

@@ -12,18 +12,10 @@ on a machine with pymavlink and a flight controller.
 """
 
 import asyncio
-import os
 
-import jax
 import numpy as np
 
-# Interactive demo: many small per-step planner calls — default to CPU
-# (set DART_EXAMPLES_DEVICE to target an accelerator).
-jax.config.update(
-    "jax_platforms", os.environ.get("DART_EXAMPLES_DEVICE", "cpu")
-)
-
-from dart_planner_tpu.hardware import (  # noqa: E402
+from dart_planner_tpu.hardware import (
     MissionConfig,
     MissionRunner,
     SimulatedVehicleIO,

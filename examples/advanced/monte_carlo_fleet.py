@@ -9,9 +9,9 @@ sensor noise, and 3 m proximity sensing that reveals blind-spot spheres
 mid-flight (the reference's 10 Hz in-flight mapper refresh,
 /root/reference/src/dart_planner/cloud/main_improved_threelayer.py:206).
 
-Runs anywhere (CPU included; the TPU fused kernels engage automatically
-on TPU via method="auto"). bench.py runs the same pipeline at 2048
-episodes on the chip.
+Runs anywhere (CPU included; on the GPU, method="auto" runs the fused
+solve and tick kernels). bench.py runs the same pipeline at 2048
+episodes on the GPU.
 """
 
 import jax
@@ -29,7 +29,6 @@ from dart_planner_tpu.sim.worlds import perceive_worlds
 
 
 def main(episodes: int = 32):
-    on_tpu = jax.default_backend() == "tpu"
     cfg = ClosedLoopConfig(
         # small horizon keeps the example quick on CPU; bench.py runs N=20
         mpc=se3_mpc.SE3MPCConfig(
@@ -64,7 +63,7 @@ def main(episodes: int = 32):
     res = closed_loop.simulate_episode(
         cfg, ep_key, states, goals,
         obstacles=pobs, obstacle_mask=pmask,
-        method="auto" if on_tpu else "xla",
+        method="auto",
         true_obstacles=tobs, true_obstacle_mask=tmask,
         corridor_observed=corridor_cov,
     )

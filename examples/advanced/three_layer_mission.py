@@ -8,18 +8,9 @@ simulated plant.
     python examples/advanced/three_layer_mission.py
 """
 
-import os
-
-import jax
 import numpy as np
 
-# Interactive demo: many small per-step planner calls — default to CPU
-# (set DART_EXAMPLES_DEVICE to target an accelerator).
-jax.config.update(
-    "jax_platforms", os.environ.get("DART_EXAMPLES_DEVICE", "cpu")
-)
-
-from dart_planner_tpu.common.types import DroneState  # noqa: E402
+from dart_planner_tpu.common.types import DroneState
 from dart_planner_tpu.perception import GeometricMapper
 from dart_planner_tpu.planning.global_mission import (
     GlobalMissionPlanner,

@@ -7,17 +7,8 @@ logic lives in :mod:`dart_planner_tpu.apps.minimal_takeoff`.
 """
 
 import asyncio
-import os
 
-import jax
-
-# The real-time sim loop issues thousands of tiny host-side ops; run it on
-# CPU unless explicitly pointed at an accelerator (set DART_EXAMPLES_DEVICE).
-jax.config.update(
-    "jax_platforms", os.environ.get("DART_EXAMPLES_DEVICE", "cpu")
-)
-
-from dart_planner_tpu.apps.minimal_takeoff import minimal_takeoff  # noqa: E402
+from dart_planner_tpu.apps.minimal_takeoff import minimal_takeoff
 
 
 def main() -> None:

@@ -1,10 +1,10 @@
-"""Intermediate (TPU-native): one vmapped call solves thousands of MPC
+"""Intermediate: one batched call solves thousands of MPC
 problems.
 
 No reference counterpart — the reference plans one trajectory at a time;
 here 2048 randomized scenarios (starts, goals, obstacle fields) are one
-batched call into the same solver the single-vehicle path uses. On a TPU
-this dispatches the fused Pallas kernel; on CPU the pure-XLA path.
+batched call into the same solver the single-vehicle path uses. On the
+GPU this dispatches the fused Pallas kernel; on CPU the pure-XLA path.
 
     python examples/intermediate/batched_solves.py
 """

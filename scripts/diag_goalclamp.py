@@ -19,9 +19,9 @@ import numpy as np
 
 
 def main():
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from dart_planner_tpu.common.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     from dart_planner_tpu.sim import (ClosedLoopConfig, WorldConfig,
                                       closed_loop, sample_worlds)
     from dart_planner_tpu.sim.worlds import perceive_worlds

@@ -1,8 +1,9 @@
-"""Anatomy of THE stuck scenario (docs/quality.md "known blemish").
+"""Anatomy of a basin-stuck scenario (docs/quality.md, "Solver
+convergence").
 
-One scenario of the 4096-bench batch lands at cost excess 1.08 on the
-TPU XLA path at every budget, and the round-5 perturbed-restart phase
-did not dislodge it. This probe answers, reusing already-compiled
+One scenario of the 4096-bench batch landed at cost excess 1.08 on the
+XLA path at every budget, and the round-5 perturbed-restart phase did
+not dislodge it. This probe answers, reusing already-compiled
 executables (the full batch is tiled with the stuck scenario):
 
   1. which scenario is it, and does the restart's suspicion ranking
@@ -29,9 +30,9 @@ from diag_convergence import make_batch
 
 
 def main():
-    jax.config.update("jax_compilation_cache_dir",
-                      os.path.expanduser("~/.cache/jax_comp_cache"))
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from dart_planner_tpu.common.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     config, prob = make_batch(4096)
     print(f"platform={jax.devices()[0].platform}")
 

@@ -72,11 +72,9 @@ def main():
     from dart_planner_tpu.sim import closed_loop, sample_worlds
     from dart_planner_tpu.sim.worlds import perceive_worlds
 
-    jax.config.update(
-        "jax_compilation_cache_dir",
-        __import__("os").path.expanduser("~/.cache/jax_comp_cache"),
-    )
-    jax.config.update("jax_persistent_cache_min_compile_time_secs", 1.0)
+    from dart_planner_tpu.common.compile_cache import setup_compile_cache
+
+    setup_compile_cache()
     print(f"platform={jax.devices()[0].platform} episodes={args.episodes}")
 
     wc = WorldConfig()

@@ -12,7 +12,7 @@ scripts/measure_scaling.py. Every process:
    reference recomputation of the same global fleet, and throughput.
 
 The printed stats come from collectives that crossed real process
-boundaries (gRPC DCN path), so equality with the local recomputation
+boundaries (gRPC), so equality with the local recomputation
 proves the multi-process mesh + host-local sharding + cross-process
 psum all work — the thing tests/test_scaling.py's single-process
 virtual mesh cannot prove.

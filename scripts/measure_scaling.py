@@ -38,7 +38,7 @@ def run_mesh(num_processes, local_devices, per_device, reps,
     def prefix(i):
         # one core per process: without pinning, XLA's intra-op thread
         # pool lets a 1-process run use EVERY core, which under-reports
-        # multi-process efficiency as core contention, not DCN cost
+        # multi-process efficiency as core contention, not network cost
         return (
             ["taskset", "-c", str(i % ncores)] if pin_cores else []
         )

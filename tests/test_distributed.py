@@ -5,9 +5,9 @@ Launches N separate Python processes, each a ``jax.distributed``
 participant with its own virtual CPU devices, building one global
 ("hosts", "devices") mesh. Unlike tests/test_scaling.py (single-process
 virtual mesh), the psum'd FleetStats here cross actual process
-boundaries over the gRPC/Gloo DCN path — this is the reference's
-edge<->cloud process split (edge/main_improved.py:96-147) re-done the
-TPU-native way."""
+boundaries over gRPC/Gloo — this is the reference's edge<->cloud
+process split (edge/main_improved.py:96-147) re-done as one program over
+a multi-process mesh."""
 
 import json
 import os

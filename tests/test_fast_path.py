@@ -2,8 +2,8 @@
 
 CPU-mesh tests: the dispatch machinery (precompiled step with donated
 warm start, setpoint extraction/handoff, latency accounting) is
-platform-independent; the actual p95 numbers are measured on TPU by
-bench.py. Reference gate being modeled:
+platform-independent; the actual p95 numbers are measured on the GPU by
+bench.py and chip_smoke.py. Reference gate being modeled:
 /root/reference/tests/test_real_time_latency.py:109-120.
 """
 
@@ -60,14 +60,16 @@ def test_measure_latency_through_rt_loop(fast_path):
     finally:
         loop.stop()
     for key in (
+        "planning_host_p50_ms",
         "planning_host_p95_ms",
-        "planning_host_raw_p95_ms",
         "control_tick_p95_ms",
         "planner_to_actuator_p95_ms",
     ):
         assert stats[key] >= 0.0, key
-    # corrected <= raw by construction
-    assert stats["planning_host_p95_ms"] <= stats["planning_host_raw_p95_ms"]
+    # one latency per field: no raw/corrected pairs, no link round trip
+    assert not any("raw" in k or "rtt" in k for k in stats)
+    assert stats["planning_host_p50_ms"] <= stats["planning_host_p95_ms"]
+    assert stats["planner_to_actuator_p95_ms"] >= stats["planning_host_p95_ms"]
     assert stats["rt_loop_iterations"] > 0
     # the RT loop actually produced an actuator command from the setpoints
     cmd = loop.get_command()

@@ -1,4 +1,4 @@
-"""Fused Pallas solver vs the pure-XLA solver (CPU interpreter mode).
+"""Fused Pallas solver vs the pure-XLA solver (Pallas interpret mode).
 
 The fused kernel (ops/pallas_mpc.py) must run the identical algorithm as
 planning.se3_mpc.solve_se3_mpc. On convex problem instances (no hinge
@@ -12,8 +12,8 @@ import pytest
 
 from dart_planner_tpu.planning import se3_mpc
 
-# fast configuration for the interpreter (full config runs on TPU
-# benches). Tail refinement off: its compaction picks the worst
+# fast configuration for the interpreter (the full config runs compiled
+# on the GPU in chip_smoke.py). Tail refinement off: its compaction picks the worst
 # ceil(tail_capacity * B) scenarios per batch, so two-phase results are
 # deliberately batch-size dependent — the parity/padding contracts here
 # are about the CORE kernel (the two-phase pipeline gets its own tests
@@ -47,7 +47,7 @@ def _problem(rng, batch, config, with_obstacles=True):
 def _solve_both(config, prob, **kw):
     u0 = se3_mpc.initialize_thrusts(config, prob)
     rx = se3_mpc.solve(config, prob, u0, method="xla", **kw)
-    rf = se3_mpc.solve(config, prob, u0, method="fused", block_b=8, **kw)
+    rf = se3_mpc.solve(config, prob, u0, method="interpret", block_b=16, **kw)
     return rx, rf
 
 
@@ -92,7 +92,7 @@ def test_unbatched_and_shapes(rng):
     )
     u0 = se3_mpc.initialize_thrusts(CFG, prob1)
     assert u0.shape == (CFG.prediction_horizon, 3)
-    rf = se3_mpc.solve(CFG, prob1, u0, method="fused", block_b=8)
+    rf = se3_mpc.solve(CFG, prob1, u0, method="interpret", block_b=16)
     assert rf.thrusts.shape == (CFG.prediction_horizon, 3)
     assert rf.cost.shape == ()
     assert np.isfinite(np.asarray(rf.cost))
@@ -122,7 +122,7 @@ def test_bounds_respected(rng):
     (se3_mpc_planner.py:390-401)."""
     prob = _problem(rng, 8, CFG)
     u0 = se3_mpc.initialize_thrusts(CFG, prob)
-    rf = se3_mpc.solve(CFG, prob, u0, method="fused", block_b=8)
+    rf = se3_mpc.solve(CFG, prob, u0, method="interpret", block_b=16)
     lb, ub = CFG.thrust_bounds()
     u = np.asarray(rf.thrusts)
     assert (u >= np.asarray(lb) - 1e-5).all()
@@ -138,79 +138,98 @@ def test_dispatcher_auto_is_xla_on_cpu():
     assert np.isfinite(np.asarray(r.cost)).all()
 
 
-def test_group_stacking_matches_ungrouped(rng):
-    """groups=2 packs two scenarios per lane column. Packing is NOT
-    bit-exact: a group's 3N nonzero rows sit inside a 2*NP1-row matmul
-    contraction, whose tree reduction pairs partial sums differently than
-    the NP1-row G=1 contraction (~1e-6 noise). So the contract mirrors
-    the XLA-vs-fused one: tight parity on convex instances (unique Newton
-    path), aggregate cost parity on obstacle instances (near-ties may
-    branch)."""
+def test_block_size_choice_and_results_independent_of_block(rng):
+    """The wrapper's scenario block: a power of two >= 16, cut to the
+    batch's own power of two; results do not depend on it (each scenario
+    is one column of its program's arrays)."""
     from dart_planner_tpu.ops import pallas_mpc
+
+    assert pallas_mpc.block_size(1, 32) == 16
+    assert pallas_mpc.block_size(20, 64) == 32
+    assert pallas_mpc.block_size(4096, 32) == 32
+    for bad in (8, 24):
+        with pytest.raises(ValueError):
+            pallas_mpc.block_size(64, bad)
 
     convex = CFG._replace(
         ground_weight=0.0, velocity_bound_weight=0.0,
         tilt_weight=0.0, thrust_norm_weight=0.0,
     )
-    probc = _problem(rng, 6, convex, with_obstacles=False)
+    probc = _problem(rng, 20, convex, with_obstacles=False)
     u0 = se3_mpc.initialize_thrusts(convex, probc)
     u1, *_ = pallas_mpc.solve_thrusts_fused(
-        convex, probc, u0, block_b=4, interpret=True, groups=1,
-        use_obstacles=False,
+        convex, probc, u0, block_b=16, interpret=True, use_obstacles=False,
     )
     u2, *_ = pallas_mpc.solve_thrusts_fused(
-        convex, probc, u0, block_b=4, interpret=True, groups=2,
-        use_obstacles=False,
+        convex, probc, u0, block_b=32, interpret=True, use_obstacles=False,
     )
-    np.testing.assert_allclose(np.asarray(u2), np.asarray(u1), atol=2e-3)
+    assert u1.shape == u2.shape == (20, CFG.prediction_horizon, 3)
+    np.testing.assert_allclose(np.asarray(u2), np.asarray(u1), atol=1e-4)
 
-    prob = _problem(rng, 6, CFG)
+    prob = _problem(rng, 20, CFG)
     u0 = se3_mpc.initialize_thrusts(CFG, prob)
     c1 = np.asarray(pallas_mpc.solve_thrusts_fused(
-        CFG, prob, u0, block_b=4, interpret=True, groups=1)[4])
+        CFG, prob, u0, block_b=16, interpret=True)[4])
     c2 = np.asarray(pallas_mpc.solve_thrusts_fused(
-        CFG, prob, u0, block_b=4, interpret=True, groups=2)[4])
+        CFG, prob, u0, block_b=32, interpret=True)[4])
     assert np.mean(c2) <= np.mean(c1) * 1.05
     assert np.mean(c1) <= np.mean(c2) * 1.05
+
+
+def test_fused_without_compiled_kernel_raises():
+    """Off the GPU there is no compiled kernel: ``method="fused"`` raises
+    instead of silently running the interpreter, and ``"auto"`` takes the
+    XLA path."""
+    import jax
+
+    assert jax.default_backend() == "cpu"
+    assert se3_mpc.resolve_method("auto") == "xla"
+    assert se3_mpc.resolve_method("interpret") == "interpret"
+    prob = _problem(np.random.default_rng(0), 2, CFG)
+    with pytest.raises(ValueError, match="needs a GPU"):
+        se3_mpc.solve(CFG, prob, method="fused")
+    with pytest.raises(ValueError, match="unknown solver method"):
+        se3_mpc.solve(CFG, prob, method="pallas")
 
 
 def test_block_padding_paths(rng):
     """Batch not divisible by block: padded lanes must not leak into the
     real scenarios."""
-    prob5 = _problem(rng, 5, CFG)
+    prob5 = _problem(rng, 21, CFG)
     u0 = se3_mpc.initialize_thrusts(CFG, prob5)
-    r5 = se3_mpc.solve(CFG, prob5, u0, method="fused", block_b=4)
+    r5 = se3_mpc.solve(CFG, prob5, u0, method="interpret", block_b=16)
     prob4 = type(prob5)(
-        *[None if x is None else np.asarray(x)[:4] for x in prob5]
+        *[None if x is None else np.asarray(x)[:16] for x in prob5]
     )
     r4 = se3_mpc.solve(
-        CFG, prob4, u0[:4], method="fused", block_b=4
+        CFG, prob4, u0[:16], method="interpret", block_b=16
     )
     np.testing.assert_allclose(
-        np.asarray(r5.thrusts)[:4], np.asarray(r4.thrusts), atol=1e-4
+        np.asarray(r5.thrusts)[:16], np.asarray(r4.thrusts), atol=1e-4
     )
 
 
 def test_full_curvature_stage_with_padding_rows(rng):
-    """Stage-2 (full-curvature Newton) parity at a horizon whose 3N is
-    NOT a multiple of 8 (N=12 -> 4 padding rows in the kernel layout).
+    """Stage-2 (full-curvature Newton) parity at a horizon that is NOT a
+    power of two (N=12 -> 4 padding rows in the kernel's 16-row layout).
 
     Regression guard: the stage-2 Jacobi clamp had no absolute floor, so
     padding rows (diag == diag_quad == 0) produced minv = inf and one
     NaN silently froze the whole stage — every line-search comparison
     went false, min_improvement reported 0 (= "converged"), and the
-    fused path quietly returned stage-1-quality iterates. N=8 tests
-    (3N=24, no padding) could never catch it."""
+    fused path quietly returned stage-1-quality iterates. Horizons with
+    no padding rows can never catch it."""
     config = se3_mpc.SE3MPCConfig(
         prediction_horizon=12, max_iterations=10,
         gn_warmup_iterations=4, cg_iterations=10,
     )
-    assert (3 * config.prediction_horizon) % 8 != 0  # padding rows exist
+    N = config.prediction_horizon
+    assert N & (N - 1) != 0  # padding rows exist
     assert config.newton_full_curvature  # stage 2 actually runs
     prob = _problem(rng, 8, config)
     u0 = se3_mpc.initialize_thrusts(config, prob)
     rx = se3_mpc.solve(config, prob, u0, method="xla")
-    rf = se3_mpc.solve(config, prob, u0, method="fused", block_b=8)
+    rf = se3_mpc.solve(config, prob, u0, method="interpret", block_b=16)
     np.testing.assert_allclose(
         np.asarray(rf.cost), np.asarray(rx.cost), rtol=1e-4
     )
@@ -230,7 +249,7 @@ def test_dynamic_vcap_uniform_cap_matches_static_kernel():
     rng = np.random.default_rng(7)
     prob = _problem(rng, 16, CFG)
     vcap = jnp.full((16,), CFG.max_velocity, jnp.float32)
-    for method in ("xla", "fused"):
+    for method in ("xla", "interpret"):
         r0 = se3_mpc.solve(CFG, prob, method=method)
         r1 = se3_mpc.solve(CFG, prob._replace(v_cap=vcap), method=method)
         np.testing.assert_array_equal(
@@ -256,7 +275,9 @@ def test_dynamic_vcap_binds_and_paths_agree():
     vcap = jnp.asarray(rng.uniform(1.5, 3.0, (B,)).astype(np.float32))
     probc = prob._replace(v_cap=vcap)
     r_x = se3_mpc.solve(CFG, probc, method="xla", use_obstacles=False)
-    r_f = se3_mpc.solve(CFG, probc, method="fused", use_obstacles=False)
+    r_f = se3_mpc.solve(
+        CFG, probc, method="interpret", use_obstacles=False
+    )
     cx, cf = np.asarray(r_x.cost), np.asarray(r_f.cost)
     assert np.mean(cf) <= np.mean(cx) * 1.05
     assert np.mean(cx) <= np.mean(cf) * 1.05
@@ -273,9 +294,8 @@ def test_dynamic_vcap_binds_and_paths_agree():
 
 
 def test_generalizes_to_larger_horizon_and_obstacle_count():
-    """N=40 / K=16 (VERDICT round-3 item 7): NP1 grows to 120 rows (the
-    VMEM-fit logic auto-derates block_b) and the obstacle loops run 16
-    live spheres. Fused path must descend and match the XLA path's
+    """N=40 / K=16: the kernel's horizon rows grow to 64 and the
+    obstacle loops run 16 live spheres. Fused path must descend and match the XLA path's
     aggregate cost at the same budget."""
     rng = np.random.default_rng(21)
     B = 8
@@ -296,7 +316,7 @@ def test_generalizes_to_larger_horizon_and_obstacle_count():
     )
     u0 = se3_mpc.initialize_thrusts(cfg, prob)
     rx = se3_mpc.solve(cfg, prob, u0, method="xla")
-    rf = se3_mpc.solve(cfg, prob, u0, method="fused", block_b=1024)
+    rf = se3_mpc.solve(cfg, prob, u0, method="interpret")
     cx, cf = np.asarray(rx.cost), np.asarray(rf.cost)
     c0 = np.asarray(se3_mpc._finalize(cfg, prob, u0).cost)
     assert np.all(np.isfinite(cf))

@@ -66,7 +66,7 @@ def test_solve_is_communication_free():
     """Compile the sharded fleet step and check the only collectives are
     the FleetStats reductions over scalars — nothing in the per-scenario
     solve crosses the mesh, which is what makes >=85% multi-host scaling
-    achievable (DCN carries O(1) bytes per step)."""
+    achievable (the interconnect carries O(1) bytes per step)."""
     mesh = scenario.make_fleet_mesh(jax.devices()[:8], hosts=2)
     prob = scenario.shard_scenarios(_problem(16), mesh)
     lowered = scenario.solve_fleet.lower(CFG, mesh, prob)
@@ -103,20 +103,18 @@ def test_weak_scaling_batch_grows_with_mesh():
 
 
 def test_fused_path_invariant_under_shard_map():
-    """The fused Pallas solver inside shard_map (the path bench.py runs
-    on real TPU, with check_vma=False) must produce the same answer as
-    the same fused solver on a single device — the automated stand-in
-    for the TPU-only fleet configuration (VERDICT round-1 weak item:
-    the fused kernel under shard_map had no automated check). Runs the
-    kernel in interpreter mode on the CPU mesh, where its arithmetic is
-    deterministic."""
+    """The fused Pallas solver inside shard_map (the fleet path on the
+    GPU) must produce the same answer as the same fused solver on a
+    single device. Runs the kernel in interpret mode on the CPU mesh,
+    where its arithmetic is deterministic; chip_smoke.py --four-cards
+    checks the compiled kernel across four GPUs."""
     prob = _problem(16)
     mesh1 = scenario.make_fleet_mesh(jax.devices()[:1], hosts=1)
-    ref, ref_stats = scenario.solve_fleet(CFG, mesh1, prob, method="fused")
+    ref, ref_stats = scenario.solve_fleet(CFG, mesh1, prob, method="interpret")
 
     mesh = scenario.make_fleet_mesh(jax.devices()[:8], hosts=2)
     probs = scenario.shard_scenarios(prob, mesh)
-    res, stats = scenario.solve_fleet(CFG, mesh, probs, method="fused")
+    res, stats = scenario.solve_fleet(CFG, mesh, probs, method="interpret")
     np.testing.assert_allclose(
         np.asarray(res.thrusts), np.asarray(ref.thrusts), atol=1e-5
     )

@@ -172,8 +172,13 @@ def test_metrics_summaries():
 
 
 # ---- multiprocess loop ----
+def _double(s):
+    # module level: the loop's spawned child unpickles it by reference
+    return {"double": s["x"] * 2}
+
+
 def test_process_control_loop():
-    loop = ProcessControlLoop(lambda s: {"double": s["x"] * 2}, frequency_hz=200.0)
+    loop = ProcessControlLoop(_double, frequency_hz=200.0)
     loop.start()
     try:
         loop.send_state({"x": 21})

@@ -160,8 +160,9 @@ def test_batched_episodes_match_vmapped():
 
 def test_fused_tick_kernel_matches_scan():
     """The fused Pallas tick-block kernel (ops/pallas_rollout.py) must
-    reproduce the scan path's controller+plant chain (CPU interpreter;
-    on-chip it is also the more accurate path vs TPU ground truth)."""
+    reproduce the scan path's controller+plant chain (Pallas interpret
+    mode on the CPU; chip_smoke.py compares the compiled kernel on the
+    GPU)."""
     import jax
 
     config = ClosedLoopConfig(
@@ -180,7 +181,7 @@ def test_fused_tick_kernel_matches_scan():
     goals = jnp.asarray(rng.normal(0, 2, (B, 3)) + [0, 0, 4], jnp.float32)
     key = jax.random.PRNGKey(0)
     r_scan = simulate_episode(config, key, states, goals, method="xla")
-    r_fused = simulate_episode(config, key, states, goals, method="fused")
+    r_fused = simulate_episode(config, key, states, goals, method="interpret")
     np.testing.assert_allclose(
         np.asarray(r_fused.final_position),
         np.asarray(r_scan.final_position),
@@ -194,6 +195,41 @@ def test_fused_tick_kernel_matches_scan():
     np.testing.assert_allclose(
         np.asarray(r_fused.min_distance),
         np.asarray(r_scan.min_distance),
+        atol=1e-4,
+    )
+
+
+def test_tick_kernel_switch_keeps_the_solver():
+    """``tick_kernel=False`` swaps only the tick blocks: under one
+    (interpreted) kernel solver the scan and the tick kernel agree."""
+    import jax
+
+    config = ClosedLoopConfig(
+        mpc=se3_mpc.SE3MPCConfig(prediction_horizon=8, max_iterations=3),
+        num_replans=3,
+    )
+    B = 2
+    states = DroneState.create(
+        timestamp=jnp.zeros(B),
+        position=jnp.asarray([[0, 0, 3.0], [1, -1, 4.0]], jnp.float32),
+        velocity=jnp.zeros((B, 3)),
+        attitude=jnp.zeros((B, 3)),
+        angular_velocity=jnp.zeros((B, 3)),
+    )
+    goals = jnp.asarray([[3.0, 1.0, 3.5], [2.0, 2.0, 3.0]], jnp.float32)
+    key = jax.random.PRNGKey(1)
+    r_kernel = simulate_episode(config, key, states, goals, method="interpret")
+    r_scan = simulate_episode(
+        config, key, states, goals, method="interpret", tick_kernel=False
+    )
+    np.testing.assert_allclose(
+        np.asarray(r_kernel.final_position),
+        np.asarray(r_scan.final_position),
+        atol=1e-4,
+    )
+    np.testing.assert_allclose(
+        np.asarray(r_kernel.tracking_rmse),
+        np.asarray(r_scan.tracking_rmse),
         atol=1e-4,
     )
 
@@ -223,7 +259,7 @@ def test_fused_tick_kernel_failsafe_branch_parity():
     goals = jnp.asarray([[0, 0, 3.0], [0, 0, 3.0]], jnp.float32)
     key = jax.random.PRNGKey(0)
     r_scan = simulate_episode(config, key, states, goals, method="xla")
-    r_fused = simulate_episode(config, key, states, goals, method="fused")
+    r_fused = simulate_episode(config, key, states, goals, method="interpret")
     np.testing.assert_allclose(
         np.asarray(r_fused.final_position),
         np.asarray(r_scan.final_position),
@@ -255,7 +291,7 @@ def test_fused_tick_kernel_substeps_and_horizon_parity():
     goals = jnp.asarray([[3.0, 1.0, 3.5], [2.0, 2.0, 3.0]], jnp.float32)
     key = jax.random.PRNGKey(2)
     r_scan = simulate_episode(config, key, states, goals, method="xla")
-    r_fused = simulate_episode(config, key, states, goals, method="fused")
+    r_fused = simulate_episode(config, key, states, goals, method="interpret")
     np.testing.assert_allclose(
         np.asarray(r_fused.final_position),
         np.asarray(r_scan.final_position),

@@ -116,7 +116,7 @@ def test_clearance_parity_scan_vs_kernel():
     )
     r2 = monte_carlo(
         FAST, key, n, START, GOAL, obstacles=tobs, obstacle_mask=tmask,
-        method="fused",
+        method="interpret",
     )
     np.testing.assert_allclose(
         np.asarray(r1.min_obstacle_clearance),
